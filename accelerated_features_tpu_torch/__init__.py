@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the sparse XFeat path of `accelerated_features_tpu`.
+"""PyTorch/CUDA port of `accelerated_features_tpu`: sparse XFeat, the
+semi-dense XFeat* pipeline and the LighterGlue matcher.
 
 The JAX package stays the reference; this package computes the same
 functions with PyTorch and hand-written CUDA kernels for Hopper
@@ -7,6 +8,8 @@ functions with PyTorch and hand-written CUDA kernels for Hopper
 
 from .api import XFeat
 from .models.backbone import xfeat_forward
-from .models.params import params_from_jax
+from .models.lighterglue import LighterGlue, lighterglue_forward
+from .models.params import load_lighterglue_params, params_from_jax
 
-__all__ = ["XFeat", "xfeat_forward", "params_from_jax"]
+__all__ = ["XFeat", "LighterGlue", "xfeat_forward", "lighterglue_forward",
+           "params_from_jax", "load_lighterglue_params"]

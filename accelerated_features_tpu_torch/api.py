@@ -1,15 +1,17 @@
-"""User-facing `XFeat` for the PyTorch port: sparse extraction and
-mutual-nearest-neighbour matching (counterpart of the JAX package's
-`api.py`, sparse members).
+"""User-facing `XFeat` for the PyTorch port (counterpart of the JAX
+package's `api.py`): sparse extraction with mutual-nearest-neighbour
+matching, the semi-dense XFeat* pipeline, and LighterGlue matching.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no device given and no GPU present they raise. On `cuda` the detect,
-descriptor-sampling and matching steps run the port's CUDA kernels; on the
-CPU they run the plain torch versions of the same functions.
+descriptor-sampling, matching and attention steps run the port's CUDA
+kernels; on the CPU they run the plain torch versions of the same
+functions.
 """
 
 from __future__ import annotations
 
+import warnings
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
@@ -17,9 +19,11 @@ import numpy as np
 import torch
 
 from .models.backbone import XFeatModel
+from .models.lighterglue import LighterGlue
 from .models.params import load_params
 from .ops.cuda.mnn import batch_mnn_match_fused
-from .ops.extraction import detect_and_compute
+from .ops.extraction import detect_and_compute, detect_and_compute_dense
+from .ops.refine import refine_matches
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -41,8 +45,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 
 class XFeat:
-    """Sparse XFeat: `detectAndCompute`, `match`, `batch_match`,
-    `match_xfeat`.
+    """XFeat inference: `detectAndCompute`, `detectAndComputeDense`,
+    `match`, `batch_match`, `match_xfeat`, `match_xfeat_star`,
+    `refine_matches`, `set_lighterglue`, `match_lighterglue`.
 
     `weights`: an extractor `.npz` path (the JAX package's format; a full
     train state works too) or a JAX-layout numpy parameter tree.
@@ -55,6 +60,7 @@ class XFeat:
         self.device = resolve_device(device)
         self.top_k = top_k
         self.detection_threshold = detection_threshold
+        self._lighterglue: Optional[LighterGlue] = None
         self.set_params(weights)
 
     def set_params(self, weights: Union[str, Mapping[str, Any]]) -> None:
@@ -167,3 +173,99 @@ class XFeat:
                                 min_cossim=min_cossim)
         return (out1["keypoints"][idx0].cpu().numpy(),
                 out2["keypoints"][idx1].cpu().numpy())
+
+    @torch.inference_mode()
+    def detectAndComputeDense(self, x: ArrayLike,
+                              top_k: Optional[int] = None,
+                              multiscale: bool = True
+                              ) -> Dict[str, torch.Tensor]:
+        """Semi-dense coarse extraction. Returns batched tensors on the
+        device: keypoints (B,K,2), descriptors (B,K,64) not normalized,
+        scales (B,K)."""
+        return detect_and_compute_dense(self.model.params,
+                                        self._parse_input_raw(x),
+                                        top_k or self.top_k, multiscale)
+
+    @torch.inference_mode()
+    def match_xfeat_star(self, im_set1: ArrayLike, im_set2: ArrayLike,
+                         top_k: Optional[int] = None):
+        """Semi-dense pipeline: dual-scale extraction, batched MNN, batched
+        refinement. Returns numpy: (mkpts0, mkpts1) for a single pair, a
+        list of (N,4) arrays for a batch."""
+        top_k = top_k or self.top_k
+        out1 = self.detectAndComputeDense(im_set1, top_k=top_k)
+        out2 = self.detectAndComputeDense(im_set2, top_k=top_k)
+        idx1, mmask = batch_mnn_match_fused(out1["descriptors"],
+                                            out2["descriptors"])
+        mk0, mk1, _, mask = refine_matches(
+            self.model.params, out1["keypoints"], out2["keypoints"],
+            out1["descriptors"], out2["descriptors"], out1["scales"], idx1,
+            mmask, fine_conf=0.25)
+        both = torch.cat([mk0, mk1], dim=-1).cpu().numpy()
+        mask = mask.cpu().numpy()
+        matches = [both[b][mask[b]] for b in range(both.shape[0])]
+        if len(matches) == 1:
+            return matches[0][:, :2], matches[0][:, 2:]
+        return matches
+
+    @torch.inference_mode()
+    def refine_matches(self, d0: Mapping[str, ArrayLike],
+                       d1: Mapping[str, ArrayLike],
+                       matches: List[Tuple[ArrayLike, ArrayLike]],
+                       batch_idx: int, fine_conf: float = 0.25
+                       ) -> torch.Tensor:
+        """Refine the matches of one batch item: `d0`/`d1` from
+        `detectAndComputeDense`, `matches` from `batch_match`. Returns an
+        (N,4) tensor on the device, refined xy of set 0 beside the matched
+        xy of set 1. `match_xfeat_star` does this for a whole batch."""
+        def item(d, key):
+            return torch.as_tensor(d[key][batch_idx], dtype=torch.float32,
+                                   device=self.device)[None]
+
+        idx0, idx1 = (torch.as_tensor(i, dtype=torch.int64,
+                                      device=self.device)
+                      for i in matches[batch_idx])
+        k = d0["keypoints"].shape[1]
+        idx1_full = torch.zeros((1, k), dtype=torch.int64,
+                                device=self.device)
+        mmask = torch.zeros((1, k), dtype=torch.bool, device=self.device)
+        idx1_full[0, idx0] = idx1
+        mmask[0, idx0] = True
+        mk0, mk1, _, mask = refine_matches(
+            self.model.params, item(d0, "keypoints"), item(d1, "keypoints"),
+            item(d0, "descriptors"), item(d1, "descriptors"),
+            item(d0, "scales"), idx1_full, mmask, fine_conf=fine_conf)
+        return torch.cat([mk0[0][mask[0]], mk1[0][mask[0]]], dim=-1)
+
+    def set_lighterglue(self, weights: Optional[Union[str, Mapping[str, Any]]
+                                                ] = None,
+                        **kwargs) -> LighterGlue:
+        """Load the LighterGlue matcher onto this extractor's device.
+        `weights`: a matcher `.npz` path or a JAX-layout numpy tree. None
+        is an explicit opt-in to random weights (smoke tests only) and
+        warns."""
+        if weights is None:
+            warnings.warn("LighterGlue initialized with RANDOM weights: "
+                          "matches will be arbitrary. Pass weights=... for "
+                          "real use.", stacklevel=2)
+        self._lighterglue = LighterGlue(weights, self.device, **kwargs)
+        return self._lighterglue
+
+    def match_lighterglue(self, d0: Mapping[str, Any], d1: Mapping[str, Any],
+                          min_conf: float = 0.1
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+        """Attention matching of two `detectAndCompute` outputs, each with
+        an added 'image_size' (W,H). Matcher weights must be loaded first
+        with `set_lighterglue(weights=...)`. Returns tensors on the device:
+        matched keypoints (S,2), (S,2) and their index pairs (S,2)."""
+        if self._lighterglue is None:
+            raise RuntimeError(
+                "LighterGlue weights are not loaded. Call "
+                "xfeat.set_lighterglue(weights=<path-or-tree>) first (or "
+                "set_lighterglue() explicitly to opt into random weights "
+                "for smoke testing).")
+        idx = self._lighterglue.match(d0, d1, min_conf=min_conf)
+        k0 = torch.as_tensor(d0["keypoints"], device=self.device)
+        k1 = torch.as_tensor(d1["keypoints"], device=self.device)
+        return k0[idx[:, 0]], k1[idx[:, 1]], idx

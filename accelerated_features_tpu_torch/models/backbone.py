@@ -117,6 +117,20 @@ def xfeat_forward(params: Dict[str, Any], x: torch.Tensor):
     return nhwc(feats), nhwc(logits), nhwc(heat)
 
 
+def fine_matcher_forward(params: Dict[str, Any],
+                         x: torch.Tensor) -> torch.Tensor:
+    """Fine-matcher MLP 128 -> 512 x4 -> 64 on (..., 128) concatenated
+    descriptor pairs (inference: BatchNorm folded into the four hidden
+    layers). Full float32 matmuls."""
+    mlp = params["fine_matcher"]
+    if any("mean" in layer for layer in mlp):
+        raise ValueError("inference needs BatchNorm folded into the fine "
+                         "matcher (models.params.fold_batchnorm)")
+    for layer in mlp[:-1]:
+        x = F.relu(F.linear(x, layer["w"], layer["b"]))
+    return F.linear(x, mlp[-1]["w"], mlp[-1]["b"])
+
+
 class XFeatModel(nn.Module):
     """The backbone as a module: holds a folded parameter tree as buffers
     (so `.to(device)` moves it) and runs `xfeat_forward`."""

@@ -1,4 +1,5 @@
-"""Weights of the XFeat backbone for the PyTorch port.
+"""Weights of the XFeat backbone and the LighterGlue matcher for the
+PyTorch port.
 
 The port reads the same `.npz` files as the JAX package's
 `api.load_params` (flat `a/b/0/w` keys; a full train state keeps its
@@ -120,3 +121,11 @@ def load_params(weights: Union[str, Mapping[str, Any]],
     return params_from_jax(tree)
 
 
+def load_lighterglue_params(weights: Union[str, Mapping[str, Any]]
+                            ) -> Dict[str, Any]:
+    """LighterGlue matcher `.npz` path (a full train state contributes its
+    `params/` subtree) or JAX-layout numpy tree -> the port's tensor tree.
+    Linear weights become (out, in); `posenc_wr` keeps its (2, D/2) layout
+    and `token_confidence` is carried across unread."""
+    tree = load_npz_tree(weights) if isinstance(weights, str) else weights
+    return params_from_jax(tree)

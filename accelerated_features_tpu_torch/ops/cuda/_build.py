@@ -5,6 +5,8 @@ each one is compiled by its own `nvcc` process (all started together) into
 a shared library for Hopper (`sm_90a`), under `_build/<hash>/` beside the
 sources; the hash covers every source and the flags, so an edited source
 rebuilds and an unchanged one is reused. Libraries are loaded with ctypes.
+The compiler's report (`-Xptxas -v`: registers, shared memory and spills
+of every kernel) is kept beside each library as `lib<name>.log`.
 
 Each C entry launches on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises when that is not 0.
@@ -27,7 +29,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -81,6 +83,7 @@ def build_all() -> Dict[str, Path]:
             os.unlink(tmp)
             errors.append(f"nvcc failed for {todo[name].name}:\n{log}")
         else:
+            libs[name].with_suffix(".log").write_text(log)
             os.replace(tmp, libs[name])  # atomic: no half-written library
     if errors:
         raise RuntimeError("\n".join(errors))

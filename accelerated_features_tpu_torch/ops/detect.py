@@ -94,18 +94,36 @@ def tile_candidates(scores: torch.Tensor
 
 def _padded_top_k(flat: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of (B,N) by value, ties in index order (as `lax.top_k`); for
-    k > N the tail is padded with (-1.0, index 0)."""
+    """Top-k of (B,N) by value, ties in index order (as `lax.top_k`), also
+    where equal values straddle the k-th place; for k > N the tail is
+    padded with (-1.0, index 0).
+
+    `torch.topk` promises no order among equal values, so the selection
+    runs on 64-bit keys that have none: the float's bits, made monotonic
+    as a signed integer (so -0.0 sorts below +0.0, as it does in
+    `lax.top_k`), above the complemented index."""
     n = flat.shape[-1]
-    vals, idx = torch.topk(flat, min(k, n), dim=-1)
-    idx, perm = torch.sort(idx, dim=-1)
-    vals = torch.gather(vals, -1, perm)
-    vals, perm = torch.sort(vals, dim=-1, descending=True, stable=True)
-    idx = torch.gather(idx, -1, perm)
+    bits = flat.float().contiguous().view(torch.int32).long()
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    key = (ordered << 32) | (n - 1 - torch.arange(n, device=flat.device))
+    top = torch.topk(key, min(k, n), dim=-1).values
+    idx = (n - 1) - (top & 0xFFFFFFFF)
+    vals = torch.gather(flat, -1, idx)
     if k > n:
         vals = F.pad(vals, (0, k - n), value=-1.0)
         idx = F.pad(idx, (0, k - n), value=0)
     return vals, idx
+
+
+def dense_topk(feat_flat: torch.Tensor, rel_flat: torch.Tensor, top_k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Semi-dense selector: the top-k /8 cells by reliability and their
+    descriptors. feat_flat (B,h*w,C), rel_flat (B,h*w) -> idx (B,K) int64,
+    feats (B,K,C). With fewer than K cells the tail is cell 0."""
+    _, idx = _padded_top_k(rel_flat, top_k)
+    feats = torch.gather(feat_flat, 1,
+                         idx[..., None].expand(-1, -1, feat_flat.shape[-1]))
+    return idx, feats
 
 
 def select_keypoints(best: torch.Tensor, sub: torch.Tensor, top_k: int

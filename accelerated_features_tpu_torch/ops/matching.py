@@ -52,6 +52,13 @@ def batch_mnn_match(d1: torch.Tensor, d2: torch.Tensor,
     return match12, mask
 
 
+def batch_mnn_match_dense(d1: torch.Tensor, d2: torch.Tensor,
+                          min_cossim: float = -1.0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`batch_mnn_match` for the semi-dense path, where every row is real."""
+    return batch_mnn_match(d1, d2, None, None, min_cossim)
+
+
 def mnn_match(d1: torch.Tensor, d2: torch.Tensor,
               valid1: Optional[torch.Tensor] = None,
               valid2: Optional[torch.Tensor] = None,

@@ -7,15 +7,19 @@ Run from the root of a checkout. In order, it
   1. builds the port's CUDA kernels from `accelerated_features_tpu_torch/
      csrc/` (one nvcc per source, all in parallel);
   2. holds each kernel against its plain torch version on the card, at the
-     shapes of the main path (800x608 images, top_k=4096);
-  3. drives sparse XFeat end to end with the repository's trained extractor
-     `artifacts/run_md_ckpt13250.npz`: `detectAndCompute` on a batch of 4,
-     `match_xfeat` on an image and its copy rolled by (24, 16) px, and
-     `batch_match`; every kernel must have been launched, at least half of
-     the matches must show the known shift, and the result must agree with
-     the port's plain path on the CPU;
+     shapes of the main path (800x608 images, top_k=4096; attention over
+     4096 keypoints of width 96);
+  3. drives the three matchers end to end with the repository's trained
+     extractor `artifacts/run_md_ckpt13250.npz` and trained matcher
+     `artifacts/lighterglue_ft_ckpt7791.npz`: `detectAndCompute` on a batch
+     of 4, `match_xfeat`, `match_lighterglue` and `match_xfeat_star` on an
+     image and its copy rolled by (24, 16) px, and `batch_match`; every
+     kernel must have been launched, at least half of the matches must
+     show the known shift, and each result must agree with the port's
+     plain path on the CPU;
   4. times each kernel against its plain version, its bound and, where one
-     exists, a single PyTorch call computing the same function.
+     exists, a single PyTorch call computing the same function, and
+     profiles one `match_xfeat` and one `match_lighterglue` call.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
 and, last, `{"ok": true, "device": {...}}`. Without a GPU, or outside a
 checkout, it exits non-zero and prints no result.
@@ -92,6 +96,49 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def profile_call(name: str, fn) -> None:
+    """Print where the time of one fn() call goes, by device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, reach = 0.0, float("-inf")
+    for a, b in spans:  # union of kernel intervals, us
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    print(f"profile {name}: wall {wall:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms ({len(kernels)} kernels), idle share "
+          f"{1 - busy / 1e3 / wall:.3f}")
+    for kname, (n, t) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:15]:
+        print(f"  {t / 1e3:8.4f} ms  x{n:<3d} {kname[:100]}")
+
+
+def median_wall_ms(fn, calls: int = 5):
+    """Host-clock times of `calls` fn() calls, each ended by a device
+    synchronize: (all of them, their median)."""
+    import torch
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls, sorted(walls)[calls // 2]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -101,8 +148,9 @@ def main() -> int:
         return 2
     root = Path(__file__).resolve().parent
     weights = root / "artifacts" / "run_md_ckpt13250.npz"
+    lg_weights = root / "artifacts" / "lighterglue_ft_ckpt7791.npz"
     if not (root / "accelerated_features_tpu_torch").is_dir() or \
-            not weights.exists():
+            not weights.exists() or not lg_weights.exists():
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -111,6 +159,8 @@ def main() -> int:
 
     from accelerated_features_tpu_torch import XFeat, xfeat_forward
     from accelerated_features_tpu_torch.ops.cuda import _build
+    from accelerated_features_tpu_torch.ops.cuda.attention import (
+        attention_reference, flash_attention)
     from accelerated_features_tpu_torch.ops.cuda.bicubic import (
         plain_descriptors, sample_descriptors)
     from accelerated_features_tpu_torch.ops.cuda.detect_fused import (
@@ -122,10 +172,11 @@ def main() -> int:
     from accelerated_features_tpu_torch.ops.detect import (
         heatmap_decode, score_map, select_keypoints, topk_keypoints)
     from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
+    from accelerated_features_tpu_torch.ops.refine import refine_matches
     from accelerated_features_tpu_torch.ops.resize import to_unit_float
     from accelerated_features_tpu_torch.ops.sample import l2_normalize
 
-    # the plain MNN's similarity matmul must be full fp32 (the default)
+    # the plain versions' matmuls must be full fp32 (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -135,6 +186,14 @@ def main() -> int:
     t0 = time.time()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.time() - t0:.1f} s")
+    for name, lib in sorted(libs.items()):  # ptxas: registers and spills
+        log = lib.with_suffix(".log").read_text().splitlines()
+        for i, line in enumerate(log):
+            if "Compiling entry function" in line:
+                fn_name = line.split("'")[1]
+                print(f"ptxas {name} {fn_name}: "
+                      + "; ".join(x.strip() for x in log[i + 2:i + 4])
+                      .replace("ptxas info    : ", ""))
 
     # ---- 2. each kernel against its plain version --------------------------
     xf = XFeat(weights=str(weights), top_k=TOP_K, detection_threshold=THR,
@@ -241,12 +300,66 @@ def main() -> int:
             print(f"check mnn exact B=4 K={TOP_K} {tag}: identical, "
                   f"matches {m_k.sum(1).tolist()}")
     d1, d2 = desc, desc.roll(1, dims=0).contiguous()  # timed below
+
+    # kernel D at LighterGlue's shapes (4096 keypoints, width 96, scale
+    # 1/sqrt(96)) and at awkward ones, seeded normal q, k, v. Gate: the JAX
+    # package's own for its attention kernel, atol 2e-5 + rtol 1e-4, fp32.
+    def attn_inputs(seed, b, nq, nk, d):
+        gq = torch.Generator(device="cpu").manual_seed(seed)
+        return [torch.randn((b, n, d), generator=gq).to(dev)
+                for n in (nq, nk, nk)]
+
+    def attn_check(tag, q, k, v, mask):
+        got = flash_attention(q, k, v, mask)
+        ref = attention_reference(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        worst = err.max().item()
+        errs["attention"] = max(errs.get("attention", 0.0), worst)
+        print(f"check attention {tag} q{tuple(q.shape)} k{tuple(k.shape)}: "
+              f"max_abs_err {worst:.3g}")
+        check(bool(torch.isfinite(got).all())
+              and bool((err <= 2e-5 + 1e-4 * ref.abs()).all()),
+              f"kernel D differs from plain ({tag})")
+        return got
+
+    ar = torch.arange(TOP_K)
+    gm = torch.Generator(device="cpu").manual_seed(1)
+    ragged = torch.stack([(ar < n) & (torch.rand(TOP_K, generator=gm) > 0.05)
+                          for n in (3500, 2000)]).to(dev)
+    q, k, v = attn_inputs(2, 2, TOP_K, TOP_K, 96)
+    attn_check("ragged mask", q, k, v, ragged)
+    attn_check("no mask", q, k, v, None)
+    attn_check("Nq != Nk, ragged mask", q[:, :3000].contiguous(), k, v,
+               ragged)
+    one_empty = ragged.clone()
+    one_empty[1] = False
+    got = attn_check("one item fully masked", q, k, v, one_empty)
+    check(bool(((got[1] - v[1].mean(0)).abs() <= 1e-5).all()),
+          "a fully masked item must get the mean of V")
+    # masked keys filled with huge values contribute nothing
+    n_real = 3000
+    k_big, v_big = k.clone(), v.clone()
+    k_big[:, n_real:] = 100.0
+    v_big[:, n_real:] = -50.0
+    got = attn_check("huge masked keys", q, k_big, v_big,
+                     (ar < n_real)[None].expand(2, -1).contiguous().to(dev))
+    base = flash_attention(q, k[:, :n_real].contiguous(),
+                           v[:, :n_real].contiguous())
+    check(bool(((got - base).abs() <= 2e-5 + 1e-4 * base.abs()).all()),
+          "masked keys leak into kernel D's output")
+    qs, ks, vs = attn_inputs(3, 2, 100, 80, 64)
+    attn_check("small odd, D=64, masked", qs, ks, vs,
+               (torch.rand((2, 80), generator=gm) > 0.4).to(dev))
     torch.cuda.synchronize()
 
     # ---- 3. end to end through the user API ---------------------------------
     counters = {"detect_fused": detect_candidates,
                 "bicubic": sample_descriptors,
-                "mnn": batch_mnn_match_fused}
+                "mnn": batch_mnn_match_fused,
+                "attention": flash_attention}
+    matcher = xf.set_lighterglue(weights=str(lg_weights))
+    size = {"image_size": (W, H)}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.time()
@@ -259,9 +372,25 @@ def main() -> int:
     torch.cuda.synchronize()
     e2e_s = time.time() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"main path: {e2e_s:.3f} s, launches {launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel was not launched on the main path: {launches}")
+    print(f"main path, sparse XFeat: {e2e_s:.3f} s, launches {launches}")
+    check(all(launches[k] > 0 for k in ("detect_fused", "bicubic", "mnn")),
+          f"a kernel was not launched on the sparse path: {launches}")
+    # the other two matchers, counted on their own: LighterGlue on the
+    # extraction above, and XFeat*
+    f0, f1 = {**outs[0], **size}, {**outs[1], **size}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    lg0, lg1, lg_idx = xf.match_lighterglue(f0, f1)
+    st0, st1 = xf.match_xfeat_star(imgs[0], imgs[1])
+    torch.cuda.synchronize()
+    e2e_s = time.time() - t0
+    matcher_launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"main path, LighterGlue and XFeat*: {e2e_s:.3f} s, launches "
+          f"{matcher_launches}")
+    check(matcher_launches["attention"] > 0 and matcher_launches["mnn"] > 0,
+          f"a kernel was not launched on this path: {matcher_launches}")
+    launches["attention"] = matcher_launches["attention"]
 
     for o in outs:
         check(o["keypoints"].shape[1] == 2 and o["descriptors"].shape[1] == 64
@@ -328,18 +457,151 @@ def main() -> int:
         check(not bool((diff & ~tie[b]).any()),
               f"batch_match on the card differs from the CPU path (item {b})")
 
+    # ---- match_lighterglue: the trained 6-layer, 96-D, 1-head matcher on
+    # the extraction of image 0 and its roll (4096 keypoints each, so masked
+    # pruning engages above 1536) ------------------------------------------
+    check(min(len(f0["keypoints"]), len(f1["keypoints"])) > 1536,
+          "too few keypoints for LighterGlue's pruning to engage")
+    flash_attention.launches = 0
+    out_gpu = matcher.forward_padded(f0, f1)
+    torch.cuda.synchronize()
+    n_layers = matcher.conf["n_layers"]
+    print(f"match_lighterglue: {flash_attention.launches} attention launches"
+          f" a call ({n_layers} layers x (2 self + 2 cross))")
+    check(flash_attention.launches == 4 * n_layers,
+          f"kernel D launched {flash_attention.launches} times a call")
+    matcher_cpu = xf_cpu.set_lighterglue(weights=str(lg_weights))
+    out_cpu = matcher_cpu.forward_padded(
+        *({k: (v.cpu() if torch.is_tensor(v) else v) for k, v in f.items()}
+          for f in (f0, f1)))
+    n0, n1 = len(f0["keypoints"]), len(f1["keypoints"])
+    la = out_cpu["log_assignment"][0, :n0, :n1]
+    row_top = torch.topk(la, 2, dim=1).values
+    col_top = torch.topk(la, 2, dim=0).values
+    best = la.argmax(dim=1)
+    # rows where two correct float32 runs may differ: the final log
+    # assignment's top two (of the row, or of its best column) within 1e-4,
+    # or a pruning decision of the point or of its best partner within 1e-5
+    # of the threshold
+    tie = ((row_top[:, 0] - row_top[:, 1] < 1e-4)
+           | (col_top[0] - col_top[1] < 1e-4)[best]) \
+        & out_cpu["keep0"][0, :n0]
+    close = (out_cpu["prune_margin0"][0, :n0] < 1e-5) \
+        | (out_cpu["prune_margin1"][0, :n1] < 1e-5)[best]
+    loose = tie | close
+    gm0, cm0 = out_gpu["matches0"][0, :n0].cpu(), out_cpu["matches0"][0, :n0]
+    gs0, cs0 = out_gpu["mscores0"][0, :n0].cpu(), out_cpu["mscores0"][0, :n0]
+    diff = gm0 != cm0
+    serr = (gs0 - cs0).abs()[~loose & ~diff].max().item()
+    n_pruned = n0 - int(out_gpu["keep0"][0, :n0].sum())
+    print(f"match_lighterglue cuda vs cpu: {int((gm0 >= 0).sum())} mutual "
+          f"rows, {int(diff.sum())} rows differ, "
+          f"{int((diff & ~loose).sum())} of them off near-ties "
+          f"({int(tie.sum())} near-tie rows, {int(close.sum())} near a "
+          f"pruning threshold, of {n0}); mscores0 max abs err {serr:.3g}; "
+          f"pruning on, {n_pruned} points of image 0 pruned (smallest "
+          f"distance to the threshold "
+          f"{float(out_gpu['prune_margin0'][0, :n0].min()):.3g})")
+    check(not bool((diff & ~loose).any()),
+          "match_lighterglue on the card differs from the CPU path")
+    check(int(loose.sum()) <= n0 // 100, "too many near-tie rows")
+    check(serr <= 1e-4, f"mscores0 differ by {serr}")
+    flip = (out_gpu["keep0"].cpu() != out_cpu["keep0"]) \
+        & (out_cpu["prune_margin0"] >= 1e-5)
+    # the trained matcher finds every point of this pair matchable enough
+    # (> 0.05), so the masks stay full; finite margins show that the
+    # pruning rule ran
+    check(bool(torch.isfinite(out_gpu["prune_margin0"][0, :n0]).all())
+          and not bool(flip.any()),
+          "pruning did not engage, or pruned other points than on the CPU")
+    check(len(lg_idx) >= 100 and bool(torch.isfinite(lg0).all()),
+          f"only {len(lg_idx)} LighterGlue matches")
+    d = (lg1 - lg0).cpu().numpy() - np.array(SHIFT, np.float32)
+    frac = float(np.mean(np.all(np.abs(d) <= 1.0, axis=1)))
+    print(f"match_lighterglue: {len(lg_idx)} matches, {frac:.4f} show the "
+          f"shift within 1 px")
+    check(frac >= 0.5, f"only {frac:.3f} of LighterGlue matches show the "
+          "known shift")
+
+    # ---- match_xfeat_star ---------------------------------------------------
+    check(len(st0) >= 100 and np.isfinite(st0).all()
+          and np.isfinite(st1).all(), f"only {len(st0)} XFeat* matches")
+    d = st1 - st0 - np.array(SHIFT, np.float32)
+    frac = float(np.mean(np.all(np.abs(d) <= 2.0, axis=1)))
+    print(f"match_xfeat_star: {len(st0)} refined matches, {frac:.4f} show "
+          f"the shift within 2 px")
+    check(frac >= 0.5, f"only {frac:.3f} of XFeat* matches show the shift")
+    # end to end against the CPU path. A target cell is matched at most
+    # once, so it keys a match. The two backbones (cuDNN, CPU) round
+    # reliabilities differently, so a few cells at the top-k boundary and a
+    # few near-tie matches may differ: at least 98% of the pairs are shared.
+    c0, c1 = xf_cpu.match_xfeat_star(imgs[0], imgs[1])
+    ref_by_target = {tuple(t_): s_ for s_, t_ in zip(c0.tolist(),
+                                                     c1.tolist())}
+    shared = [(s_, ref_by_target[tuple(t_)])
+              for s_, t_ in zip(st0.tolist(), st1.tolist())
+              if tuple(t_) in ref_by_target]
+    gap = np.abs(np.array([a_ for a_, _ in shared])
+                 - np.array([b2 for _, b2 in shared])).max(axis=1)
+    same = int((gap <= 1e-3).sum())
+    print(f"match_xfeat_star cuda vs cpu end to end: {len(st0)} vs {len(c0)}"
+          f" matches, {same} the same pair within 1e-3 px")
+    check(same >= 0.98 * max(len(st0), len(c0)),
+          "match_xfeat_star on the card disagrees with the CPU path")
+    # kernel C and the refinement on the card against their plain versions
+    # on the CPU, on the card's own dense features (raw descriptors, so the
+    # near-tie width scales with their norms)
+    dn0 = xf.detectAndComputeDense(imgs[:1])
+    dn1 = xf.detectAndComputeDense(imgs[1:2])
+    mnn_before = batch_mnn_match_fused.launches
+    gi, gmask = batch_mnn_match_fused(dn0["descriptors"], dn1["descriptors"])
+    check(batch_mnn_match_fused.launches == mnn_before + 1,
+          "kernel C was not launched for the dense descriptors")
+    g_ref = refine_matches(xf.model.params, dn0["keypoints"],
+                           dn1["keypoints"], dn0["descriptors"],
+                           dn1["descriptors"], dn0["scales"], gi, gmask)
+    cpu0 = {k_: v_.cpu() for k_, v_ in dn0.items()}
+    cpu1 = {k_: v_.cpu() for k_, v_ in dn1.items()}
+    ci, cmask = batch_mnn_match(cpu0["descriptors"], cpu1["descriptors"])
+    c_ref = refine_matches(xf_cpu.model.params, cpu0["keypoints"],
+                           cpu1["keypoints"], cpu0["descriptors"],
+                           cpu1["descriptors"], cpu0["scales"], ci, cmask)
+    eps = 1e-6 * float(dn0["descriptors"].norm(dim=-1).max()
+                       * dn1["descriptors"].norm(dim=-1).max())
+    tie = mnn_near_ties(dn0["descriptors"], dn1["descriptors"],
+                        eps=eps)[0].cpu()
+    diff = (gi.cpu() != ci) | (gmask.cpu() != cmask)
+    both = (g_ref[3].cpu() & c_ref[3] & ~diff)[0]
+    kerr = (g_ref[0].cpu() - c_ref[0])[0][both].abs().max().item()
+    conf_flip = int(((g_ref[3].cpu() != c_ref[3]) & ~diff).sum())
+    print(f"xfeat_star blocks cuda vs cpu: K={gi.shape[1]}, "
+          f"{int(gmask.sum())} coarse matches, {int(diff.sum())} rows "
+          f"differ, {int((diff & ~tie).sum())} off near-ties "
+          f"({int(tie.sum())} near-tie rows, eps {eps:.3g}); refined "
+          f"coordinates max abs err {kerr:.3g} px over {int(both.sum())} "
+          f"matches; {conf_flip} rows flip at the confidence gate")
+    check(not bool((diff & ~tie).any()) and kerr <= 1e-3 and conf_flip <= 2,
+          "XFeat* on the card differs from its plain versions")
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
     xf.match_xfeat(imgs[0], imgs[1])
     per_match = {k: fn.launches for k, fn in counters.items()}
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        xf.match_xfeat(imgs[0], imgs[1])
-        walls.append((time.perf_counter() - t0) * 1e3)
+    walls, med = median_wall_ms(lambda: xf.match_xfeat(imgs[0], imgs[1]))
     print(f"match_xfeat launches per call {per_match}; wall ms "
-          f"{walls} (median {sorted(walls)[2]})")
+          f"{walls} (median {med})")
+    for name, fn in (
+            ("match_lighterglue", lambda: xf.match_lighterglue(f0, f1)),
+            ("match_xfeat_star",
+             lambda: xf.match_xfeat_star(imgs[0], imgs[1]))):
+        for c in counters.values():
+            c.launches = 0
+        fn()
+        per_call = {k: c.launches for k, c in counters.items()}
+        walls, med = median_wall_ms(fn)
+        print(f"{name} launches per call {per_call}; wall ms {walls} "
+              f"(median {med})")
 
     # ---- 4. timings at the main path's shapes ------------------------------
     rows = []
@@ -404,31 +666,41 @@ def main() -> int:
     print(f"time mnn K1=K2={TOP_K}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
           f"bound {bms:.4f} ms ({by})")
 
-    # where the time of one match_xfeat call goes, by device kernel
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        xf.match_xfeat(imgs[0], imgs[1])
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, reach = 0.0, float("-inf")
-    for a_, b2 in spans:  # union of kernel intervals, us
-        if b2 > reach:
-            busy += b2 - max(a_, reach)
-            reach = b2
-    by_name = {}
-    for e in kernels:
-        n_, t_ = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n_ + 1, t_ + e.time_range.elapsed_us())
-    print(f"profile match_xfeat: wall {wall:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms ({len(kernels)} kernels), idle share "
-          f"{1 - busy / 1e3 / wall:.3f}")
-    for name_, (n_, t_) in sorted(by_name.items(),
-                                  key=lambda kv: -kv[1][1])[:15]:
-        print(f"  {t_ / 1e3:8.4f} ms  x{n_:<3d} {name_[:100]}")
+    # kernel D at B=1, Nq=Nk=4096, D=96 with 10% of the keys masked. The
+    # kernel scores masked keys too, but the function needs only the
+    # unmasked ones, so the bound counts those.
+    q1, k1, v1_ = (t_[:1].contiguous() for t_ in (q, k, v))
+    m1 = (torch.rand((1, TOP_K), generator=gm) > 0.1).to(dev)
+    scale = 96 ** -0.5
+    out = flash_attention(q1, k1, v1_, m1, scale)
+    ms = time_ms(lambda: flash_attention(q1, k1, v1_, m1, scale))
+    pms = time_ms(lambda: attention_reference(q1, k1, v1_, m1, scale),
+                  iters=20)
+    q4, k4, v4, m4 = q1[:, None], k1[:, None], v1_[:, None], m1[:, None, None]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                              scale=scale)
+    lib_err = (library()[:, 0] - out).abs().max().item()
+    lms = time_ms(library)
+    nbytes = 4 * (q1.numel() + k1.numel() + v1_.numel() + out.numel()) \
+        + m1.numel()
+    bms, by = bound(nbytes, 4.0 * TOP_K * int(m1.sum()) * 96)
+    rows.append(dict(name="attention", route="cuda",
+                     source="accelerated_features_tpu_torch/csrc/"
+                            "attention.cu",
+                     replaces="accelerated_features_tpu/ops/pallas/"
+                              "attention.py:35",
+                     launches=launches["attention"],
+                     max_abs_err=errs["attention"], ms=ms, plain_ms=pms,
+                     bound_ms=bms, bound_by=by, library_ms=lms))
+    print(f"time attention Nq=Nk={TOP_K} D=96, {int(m1.sum())} keys "
+          f"unmasked: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+          f"scaled_dot_product_attention fp32 {lms:.4f} ms (max abs diff to "
+          f"kernel {lib_err:.3g}), bound {bms:.4f} ms ({by})")
+
+    profile_call("match_xfeat", lambda: xf.match_xfeat(imgs[0], imgs[1]))
+    profile_call("match_lighterglue", lambda: xf.match_lighterglue(f0, f1))
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -10,7 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from accelerated_features_tpu_torch.ops.cuda import bicubic, detect_fused, mnn
+from accelerated_features_tpu_torch.models import lighterglue
+from accelerated_features_tpu_torch.ops.cuda import (attention, bicubic,
+                                                     detect_fused, mnn)
 from accelerated_features_tpu_torch.ops.detect import heatmap_decode
 from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
 
@@ -101,7 +103,73 @@ def test_mnn_kernel_matches_plain_on_fp32_descriptors(dev, gate):
     assert int(m_k.sum()) > 100
 
 
+ATTN_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,nq,nk,d,masked", [
+    (2, 100, 80, 96, False), (2, 256, 512, 96, True), (2, 300, 300, 64, True),
+    (1, 1, 1, 32, False), (3, 65, 129, 32, True), (1, 1000, 2111, 96, True)])
+def test_attention_kernel_matches_plain(dev, b, nq, nk, d, masked):
+    """Ragged query and key tiles, every head dim the kernel is built for,
+    one key split and several."""
+    rng = np.random.default_rng(nq + nk)
+    q, k, v = (torch.tensor(rng.normal(size=(b, n, d)), dtype=torch.float32,
+                            device=dev) for n in (nq, nk, nk))
+    mask = torch.tensor(rng.uniform(size=(b, nk)) > 0.4, device=dev) \
+        if masked else None
+    n = attention.flash_attention.launches
+    got = attention.flash_attention(q, k, v, mask)
+    assert attention.flash_attention.launches == n + 1
+    ref = attention.attention_reference(q, k, v, mask)
+    torch.testing.assert_close(got, ref, **ATTN_TOL)
+
+
+def test_attention_kernel_masked_keys(dev):
+    """A batch item with every key masked gets the mean of V; a row whose
+    first key tiles are all masked recovers when a real key arrives;
+    masked keys with huge values contribute nothing."""
+    rng = np.random.default_rng(0)
+    b, nq, nk, d = 3, 70, 200, 96
+    q, k, v = (torch.tensor(rng.normal(size=(b, n, d)), dtype=torch.float32,
+                            device=dev) for n in (nq, nk, nk))
+    mask = torch.ones((b, nk), dtype=torch.bool, device=dev)
+    mask[0] = False
+    mask[1, :150] = False
+    mask[2, 120:] = False
+    k[2, 120:] = 100.0
+    v[2, 120:] = -50.0
+    got = attention.flash_attention(q, k, v, mask)
+    ref = attention.attention_reference(q, k, v, mask)
+    torch.testing.assert_close(got, ref, **ATTN_TOL)
+    torch.testing.assert_close(got[0], v[0].mean(0).expand(nq, d), atol=1e-5,
+                               rtol=0)
+    base = attention.flash_attention(q[2:], k[2:, :120].contiguous(),
+                                     v[2:, :120].contiguous())
+    torch.testing.assert_close(got[2:], base, **ATTN_TOL)
+
+
+def test_lighterglue_attention_routes_to_the_kernel(dev):
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.tensor(rng.normal(size=(1, 50, 96)),
+                            dtype=torch.float32, device=dev) for _ in range(3))
+    n = attention.flash_attention.launches
+    got = lighterglue._attention(q, k, v, None, heads=1)
+    assert attention.flash_attention.launches == n + 1
+    torch.testing.assert_close(got, attention.attention_reference(q, k, v),
+                               **ATTN_TOL)
+    with pytest.raises(NotImplementedError):
+        lighterglue._attention(q, k, v, None, heads=2)
+
+
 def test_kernels_reject_what_they_do_not_take(dev):
+    with pytest.raises(ValueError):
+        attention.flash_attention(torch.zeros(1, 4, 128, device=dev),
+                                  torch.zeros(1, 4, 128, device=dev),
+                                  torch.zeros(1, 4, 128, device=dev))
+    with pytest.raises(ValueError):
+        attention.flash_attention(torch.zeros(1, 4, 96, device=dev),
+                                  torch.zeros(1, 5, 96, device=dev),
+                                  torch.zeros(1, 6, 96, device=dev))
     with pytest.raises(ValueError):
         detect_fused.detect_candidates(torch.zeros(1, 7, 8, device=dev),
                                        torch.zeros(1, 1, 1, device=dev))

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from accelerated_features_tpu.api import load_params as jax_load_params
+from accelerated_features_tpu.experiments.bicubic_mxu import \
+    sample_bicubic_mxu
 from accelerated_features_tpu.models.backbone import \
     xfeat_forward as jax_xfeat_forward
 from accelerated_features_tpu.ops import detect as jdetect
@@ -169,6 +171,20 @@ def test_topk_ties_follow_index_order():
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
 
 
+@pytest.mark.parametrize("n,k", [(300, 64), (50, 50), (20, 32)])
+def test_padded_top_k_ties_across_the_kth_place(n, k):
+    """Where equal values straddle the k-th place, `lax.top_k` keeps the
+    lowest indices among them; `torch.topk` alone promises no such thing.
+    Values on a grid of 1/8 (and a -0.0) against the JAX package."""
+    rng = np.random.default_rng(n)
+    flat = (np.round(rng.uniform(-1, 1, (3, n)) * 8) / 8).astype(np.float32)
+    flat[0, 5] = -0.0
+    r_vals, r_idx = jdetect._padded_top_k(jnp.asarray(flat), k)
+    g_vals, g_idx = detect._padded_top_k(t(flat), k)
+    np.testing.assert_array_equal(g_idx.numpy(), np.asarray(r_idx))
+    np.testing.assert_array_equal(g_vals.numpy(), np.asarray(r_vals))
+
+
 def _sample_case(seed, b=2, h=12, w=16, k=300):
     rng = np.random.default_rng(seed)
     H, W = h * 8, w * 8
@@ -209,6 +225,29 @@ def test_bicubic_plain_matches_pallas_interpret(kernel, atol):
     ref = kernel(jnp.asarray(maps), jnp.asarray(pos), hw, interpret=True)
     got = cuda_bicubic.plain_descriptors(t(maps), t(pos), hw)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol)
+
+
+@pytest.mark.parametrize("h,w,k", [(60, 80, 512), (10, 13, 70)])
+def test_bicubic_plain_matches_mxu_sampler_interpret(h, w, k):
+    """The experimental VMEM-resident sampler (`experiments/bicubic_mxu.py`)
+    computes the function of kernel B without the L2 norm, in bf16. The
+    port's plain sampler agrees with it at the tolerance its own test
+    states (`tests/test_bicubic_mxu.py`: atol 0.05, rtol 0.05), so kernel B
+    serves that TPU kernel too."""
+    rng = np.random.default_rng(h)
+    hw = (h * 8, w * 8)
+    maps = rng.normal(size=(2, h, w, 64)).astype(np.float32)
+    pos = rng.uniform(0, [hw[1] - 1, hw[0] - 1], (2, k, 2)).astype(np.float32)
+    pos[:, :4] = [[0, 0], [hw[1] - 1, hw[0] - 1], [hw[1] - 1, 0],
+                  [0, hw[0] - 1]]
+    ref = sample_bicubic_mxu(jnp.asarray(maps), jnp.asarray(pos), hw,
+                             interpret=True)
+    got = sample.sample_bicubic(t(maps), t(pos), hw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=0.05,
+                               rtol=0.05)
+    normed = cuda_bicubic.plain_descriptors(t(maps), t(pos), hw)
+    np.testing.assert_allclose(
+        normed.numpy(), np.asarray(jax_l2_normalize(ref)), atol=3e-2)
 
 
 def _desc_case(kind, seed, k1, k2):

@@ -64,6 +64,29 @@ def test_match_xfeat_matches_jax(models, hw):
     np.testing.assert_array_equal(g1, r1)
 
 
+def test_match_xfeat_on_rendered_holdout_matches_jax(models):
+    """One pair of the committed rendered pose holdout (800x608 PNGs),
+    top_k 1024: the port's `match_xfeat` returns the JAX package's matched
+    keypoint pairs, compared as sets. On real images the two packages'
+    scores differ by up to 3e-4 (float32 rounding of keypoint logits that
+    reach |500|), so neighbours with nearly equal scores may swap places
+    in the score-sorted output; the sets of keypoints and of matched pairs
+    are identical."""
+    cv2 = pytest.importorskip("cv2")
+    scene = (ROOT / "artifacts" / "rendered_pose_holdout" / "MegaDepth_v1"
+             / "rendered" / "holdout_0012" / "imgs")
+    im0 = cv2.imread(str(scene / "view_0.png"))
+    im1 = cv2.imread(str(scene / "view_1.png"))
+    assert im0 is not None and im0.shape == (608, 800, 3)
+    jx, tx = models
+    r0, r1 = jx.match_xfeat(im0, im1, top_k=1024)
+    g0, g1 = tx.match_xfeat(im0, im1, top_k=1024)
+    assert len(r0) > 100 and g0.shape == r0.shape
+    ref = {tuple(row) for row in np.concatenate([r0, r1], 1).tolist()}
+    got = {tuple(row) for row in np.concatenate([g0, g1], 1).tolist()}
+    assert len(ref) == len(r0) and got == ref
+
+
 @pytest.mark.parametrize("n1,n2,min_cossim", [(70, 50, 0.82), (40, 129, -1.0)])
 def test_match_bucketed_padding_matches_jax(models, n1, n2, min_cossim):
     jx, tx = models
