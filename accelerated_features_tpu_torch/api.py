@@ -23,6 +23,7 @@ from .models.lighterglue import LighterGlue
 from .models.params import load_params
 from .ops.cuda.mnn import batch_mnn_match_fused
 from .ops.extraction import detect_and_compute, detect_and_compute_dense
+from .ops.matching import batch_mnn_match
 from .ops.refine import refine_matches
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -51,21 +52,50 @@ class XFeat:
 
     `weights`: an extractor `.npz` path (the JAX package's format; a full
     train state works too) or a JAX-layout numpy parameter tree.
+    `compute_dtype`: "float32" or "bfloat16", the backbone's dtype;
+    selection, descriptors and matching stay float32.
+    `fused_stem`: run the backbone's stem as the fused stem kernel (its
+    plain version on the CPU).
+    `fused_matching`: None runs the fused MNN kernel on `cuda` and the
+    plain matcher on the CPU; False forces the plain matcher on either
+    device; True on the CPU raises.
     """
 
     def __init__(self,
                  weights: Union[str, Mapping[str, Any]] = DEFAULT_WEIGHTS,
                  top_k: int = 4096, detection_threshold: float = 0.05,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 compute_dtype: str = "float32", fused_stem: bool = False,
+                 fused_matching: Optional[bool] = None):
         self.device = resolve_device(device)
         self.top_k = top_k
         self.detection_threshold = detection_threshold
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or "
+                             f"'bfloat16', got {compute_dtype!r}")
+        self.compute_dtype = getattr(torch, compute_dtype)
+        self.fused_stem = bool(fused_stem)
+        on_cuda = self.device.type == "cuda"
+        if fused_matching and not on_cuda:
+            raise ValueError("fused_matching=True needs a CUDA device: the "
+                             "fused MNN kernel does not run on the CPU")
+        self.fused_matching = on_cuda if fused_matching is None \
+            else bool(fused_matching)
         self._lighterglue: Optional[LighterGlue] = None
         self.set_params(weights)
 
     def set_params(self, weights: Union[str, Mapping[str, Any]]) -> None:
         """Swap the extractor weights in place (same formats as __init__)."""
         self.model = XFeatModel(load_params(weights)).to(self.device).eval()
+
+    def _mnn(self, d1: torch.Tensor, d2: torch.Tensor,
+             valid1: Optional[torch.Tensor] = None,
+             valid2: Optional[torch.Tensor] = None,
+             min_cossim: float = -1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched MNN by the fused kernel or the plain matcher, as
+        `fused_matching` says."""
+        fn = batch_mnn_match_fused if self.fused_matching else batch_mnn_match
+        return fn(d1, d2, valid1, valid2, min_cossim)
 
     # ---------------- input handling ----------------------------------------
 
@@ -116,7 +146,8 @@ class XFeat:
         thr = detection_threshold if detection_threshold is not None \
             else self.detection_threshold
         out = detect_and_compute(self.model.params, self._parse_input_raw(x),
-                                 top_k, thr)
+                                 top_k, thr, self.compute_dtype,
+                                 self.fused_stem)
         return [{"keypoints": out["keypoints"][b][v],
                  "scores": out["scores"][b][v],
                  "descriptors": out["descriptors"][b][v]}
@@ -139,8 +170,7 @@ class XFeat:
         d1p[0, :n1] = d1
         d2p[0, :n2] = d2
         ar = torch.arange(k, device=self.device)[None]
-        idx1, mask = batch_mnn_match_fused(d1p, d2p, ar < n1, ar < n2,
-                                           min_cossim)
+        idx1, mask = self._mnn(d1p, d2p, ar < n1, ar < n2, min_cossim)
         idx0 = torch.nonzero(mask[0])[:, 0]
         return idx0, idx1[0][idx0]
 
@@ -154,7 +184,7 @@ class XFeat:
                              device=self.device).contiguous()
         d2 = torch.as_tensor(feats2, dtype=torch.float32,
                              device=self.device).contiguous()
-        idx1, mask = batch_mnn_match_fused(d1, d2, None, None, min_cossim)
+        idx1, mask = self._mnn(d1, d2, None, None, min_cossim)
         out = []
         for b in range(idx1.shape[0]):
             idx0 = torch.nonzero(mask[b])[:, 0]
@@ -184,7 +214,8 @@ class XFeat:
         scales (B,K)."""
         return detect_and_compute_dense(self.model.params,
                                         self._parse_input_raw(x),
-                                        top_k or self.top_k, multiscale)
+                                        top_k or self.top_k, multiscale,
+                                        self.compute_dtype, self.fused_stem)
 
     @torch.inference_mode()
     def match_xfeat_star(self, im_set1: ArrayLike, im_set2: ArrayLike,
@@ -195,8 +226,7 @@ class XFeat:
         top_k = top_k or self.top_k
         out1 = self.detectAndComputeDense(im_set1, top_k=top_k)
         out2 = self.detectAndComputeDense(im_set2, top_k=top_k)
-        idx1, mmask = batch_mnn_match_fused(out1["descriptors"],
-                                            out2["descriptors"])
+        idx1, mmask = self._mnn(out1["descriptors"], out2["descriptors"])
         mk0, mk1, _, mask = refine_matches(
             self.model.params, out1["keypoints"], out2["keypoints"],
             out1["descriptors"], out2["descriptors"], out1["scales"], idx1,

@@ -10,12 +10,14 @@ keeps the JAX layouts: images (B,H,W,C) in, NHWC `feats`, `logits` and
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.cuda.stem_fused import stem_fused
+from ..ops.precision import full_fp32_convs
 
 IN_EPS = 1e-5  # torch InstanceNorm2d default eps
 
@@ -29,26 +31,14 @@ BLOCK_STRIDES = {
 }
 
 
-@contextlib.contextmanager
-def full_fp32_convs():
-    """Run float32 convolutions in full float32 on the card.
-
-    cuDNN runs float32 convs in TF32 by default
-    (`torch.backends.cudnn.allow_tf32` is True), which keeps ~3 decimal
-    digits; the JAX reference convolves at Precision.HIGHEST, and TF32-grade
-    heatmaps move NMS and top-k decisions. The flag is set for the forward
-    only and restored after, so the caller's global setting is untouched."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def _conv(x: torch.Tensor, p: Dict[str, torch.Tensor],
           stride: int = 1) -> torch.Tensor:
-    return F.conv2d(x, p["w"], p.get("b"), stride=stride,
+    """Conv with pad = k // 2; weight and bias are cast to the activation's
+    dtype here, for every conv of the backbone (bfloat16 convs accumulate
+    in float32 inside cuDNN)."""
+    b = p.get("b")
+    return F.conv2d(x, p["w"].to(x.dtype),
+                    None if b is None else b.to(x.dtype), stride=stride,
                     padding=p["w"].shape[-1] // 2)
 
 
@@ -75,17 +65,36 @@ def _upsample(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     return F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
 
 
-def xfeat_forward(params: Dict[str, Any], x: torch.Tensor):
-    """(B,H,W,C) float images in [0,1], H and W divisible by 32 ->
-    feats (B,H/8,W/8,64), logits (B,H/8,W/8,65), heat (B,H/8,W/8,1)."""
-    with full_fp32_convs():
-        x = input_norm(x.float())
+def stem_unfused(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """block1 and the avg-pool skip as the backbone's own convs, in the
+    dtype of the normalized gray image x (B,1,H,W) -> (B,24,H/4,W/4)."""
+    x1 = x
+    for p, s in zip(params["block1"], BLOCK_STRIDES["block1"]):
+        x1 = _basic(p, x1, s)
+    return x1 + _conv(F.avg_pool2d(x, 4, 4), params["skip1"])
 
-        x1 = x
-        for p, s in zip(params["block1"], BLOCK_STRIDES["block1"]):
-            x1 = _basic(p, x1, s)
-        skip = _conv(F.avg_pool2d(x, 4, 4), params["skip1"])
-        y = x1 + skip
+
+def xfeat_forward(params: Dict[str, Any], x: torch.Tensor, *,
+                  compute_dtype: torch.dtype = torch.float32,
+                  fused_stem: bool = False):
+    """(B,H,W,C) float images in [0,1], H and W divisible by 32 ->
+    feats (B,H/8,W/8,64), logits (B,H/8,W/8,65), heat (B,H/8,W/8,1), all
+    in `compute_dtype`.
+
+    `compute_dtype`: float32 or bfloat16. The input is normalized in
+    float32 and then cast; every conv runs in that dtype.
+    `fused_stem`: run block1 and the skip as the fused stem kernel
+    (`ops/cuda/stem_fused.py`) on CUDA tensors, and as its plain version on
+    CPU tensors. An explicit keyword only; no environment variable sets
+    it."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{compute_dtype}")
+    with full_fp32_convs():
+        x = input_norm(x.float()).to(compute_dtype)
+
+        # stem_fused raises on unfolded BatchNorm
+        y = stem_fused(params, x) if fused_stem else stem_unfused(params, x)
         outs = {}
         for name in ("block2", "block3", "block4", "block5"):
             for p, s in zip(params[name], BLOCK_STRIDES[name]):
@@ -160,5 +169,8 @@ class XFeatModel(nn.Module):
             return getattr(self, node)
         return build(self._layout)
 
-    def forward(self, x: torch.Tensor):
-        return xfeat_forward(self.params, x)
+    def forward(self, x: torch.Tensor, *,
+                compute_dtype: torch.dtype = torch.float32,
+                fused_stem: bool = False):
+        return xfeat_forward(self.params, x, compute_dtype=compute_dtype,
+                             fused_stem=fused_stem)

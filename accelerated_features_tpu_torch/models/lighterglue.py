@@ -29,7 +29,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda.attention import NEG, attention_reference, flash_attention
+from ..ops.cuda.attention import NEG, flash_attention
 from .params import load_lighterglue_params
 
 DEFAULT_CONF = {
@@ -142,24 +142,23 @@ def apply_rotary(t: torch.Tensor, cos: torch.Tensor,
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                mask_k: Optional[torch.Tensor], heads: int) -> torch.Tensor:
     """Scaled dot-product attention on (B,M,D) with an optional key-side
-    mask (B,N). On CUDA tensors it is kernel D, which has one head."""
+    mask (B,N). Heads are folded into the batch, (B*heads, N, D/heads), so
+    on CUDA tensors every head count runs kernel D (`flash_attention`
+    takes the plain version on CPU tensors)."""
     b, m, d = q.shape
-    if q.device.type == "cuda":
-        if heads != 1:
-            raise NotImplementedError("the attention kernel has one head")
+    if heads == 1:
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                mask_k, 1.0 / math.sqrt(d))
-    if heads == 1:
-        return attention_reference(q, k, v, mask_k, 1.0 / math.sqrt(d))
     hd = d // heads
 
     def split(x):  # (B,N,D) -> (B*heads, N, hd)
         return x.reshape(b, -1, heads, hd).transpose(1, 2).reshape(
             b * heads, -1, hd)
 
-    mask_h = None if mask_k is None else mask_k.repeat_interleave(heads, 0)
-    out = attention_reference(split(q), split(k), split(v), mask_h,
-                              1.0 / math.sqrt(hd))
+    mask_h = None if mask_k is None else \
+        mask_k.repeat_interleave(heads, 0).contiguous()
+    out = flash_attention(split(q), split(k), split(v), mask_h,
+                          1.0 / math.sqrt(hd))
     return out.reshape(b, heads, m, hd).transpose(1, 2).reshape(b, m, d)
 
 

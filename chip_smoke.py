@@ -8,7 +8,8 @@ Run from the root of a checkout. In order, it
      csrc/` (one nvcc per source, all in parallel);
   2. holds each kernel against its plain torch version on the card, at the
      shapes of the main path (800x608 images, top_k=4096; attention over
-     4096 keypoints of width 96);
+     4096 keypoints of width 96, one head and three; the fused stem in
+     float32 and bfloat16);
   3. drives the three matchers end to end with the repository's trained
      extractor `artifacts/run_md_ckpt13250.npz` and trained matcher
      `artifacts/lighterglue_ft_ckpt7791.npz`: `detectAndCompute` on a batch
@@ -17,7 +18,13 @@ Run from the root of a checkout. In order, it
      kernel must have been launched, at least half of the matches must
      show the known shift, and each result must agree with the port's
      plain path on the CPU;
-  4. times each kernel against its plain version, its bound and, where one
+  4. drives the throughput configuration, `XFeat(compute_dtype="bfloat16",
+     fused_stem=True)`, through `match_xfeat` (the stem kernel must have
+     been launched), and the pose path: the batched RANSAC on 8 seeded
+     two-view scenes of 2048 correspondences, against the truth, against
+     the port's CPU path from the same samples, and through
+     `run_benchmark_precomputed`;
+  5. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function, and
      profiles one `match_xfeat` and one `match_lighterglue` call.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
@@ -39,9 +46,10 @@ THR = 0.05
 SHIFT = (24, 16)         # (dx, dy) of the rolled copy
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32 FLOP/s on
-# the CUDA cores (no tensor cores)
+# the CUDA cores (no tensor cores), dense bf16 FLOP/s on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 
 
 def texture(seed: int, h: int, w: int):
@@ -89,10 +97,11 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32):
     """(least time in ms, what bounds it) for moving `nbytes` once and
-    doing `flops` fp32 operations on one H100."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    doing `flops` operations on one H100, at the fp32 CUDA-core peak
+    unless another peak is given for the operands' type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -139,6 +148,199 @@ def median_wall_ms(fn, calls: int = 5):
     return walls, sorted(walls)[calls // 2]
 
 
+
+def stem_flops(b: int, h: int, w: int) -> float:
+    """Operations of block1 plus the skip on a (b,h,w) image: 2 per
+    multiply-add of the four 3x3 convs (1->4, 4->8 /2, 8->8, 8->24 /4),
+    the 4x4 pooling and the 1x1 skip conv."""
+    per_px = 2 * 9 * (1 * 4 + 4 * 8 / 4 + 8 * 8 / 4 + 8 * 24 / 16) \
+        + (16 + 2 * 24) / 16
+    return per_px * b * h * w
+
+
+def check_stem(params, x_main, errs) -> None:
+    """Kernel E against its plain version on the card, float32 and
+    bfloat16: at the main path's size (B=1 and B=4 of 608x800, the real
+    normalized images) and at sizes whose /4 output the 8x8 tile does not
+    divide, down to a single tile."""
+    import torch
+
+    from accelerated_features_tpu_torch.ops.cuda.stem_fused import (
+        stem_fused, stem_reference)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    cases = [("B=1 608x800", x_main[:1].contiguous()),
+             ("B=4 608x800", x_main)]
+    cases += [(f"B={b} {h}x{w}",
+               torch.randn((b, 1, h, w), generator=g).to(x_main.device))
+              for b, h, w in ((2, 96, 64), (2, 160, 224), (3, 32, 32))]
+    for tag, xg in cases:
+        got = stem_fused(params, xg)
+        ref = stem_reference(params, xg)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all())
+              and bool((err <= 2e-4 + 2e-4 * ref.abs()).all()),
+              f"kernel E differs from plain in float32 ({tag})")
+        # bfloat16, the JAX package's rule for its stem kernel: deviation
+        # from the float32 result, in units of its standard deviation, at
+        # most max(4 x the plain bfloat16 version's, 0.1)
+        xb = xg.to(torch.bfloat16)
+        got_b, ref_b = stem_fused(params, xb), stem_reference(params, xb)
+        torch.cuda.synchronize()
+        scale = ref.std()
+        err_k = float((got_b.float() - ref).abs().max() / scale)
+        err_p = float((ref_b.float() - ref).abs().max() / scale)
+        diff_b = (got_b.float() - ref_b.float()).abs()
+        print(f"check stem_fused {tag}: float32 max_abs_err "
+              f"{err.max().item():.3g}; bfloat16 deviation from float32 "
+              f"{err_k:.4f} (plain bfloat16 {err_p:.4f}) of the output's "
+              f"std, kernel vs plain bfloat16 max_abs_err "
+              f"{diff_b.max().item():.3g}, "
+              f"{float((diff_b > 0).float().mean()):.4f} of values differ")
+        check(got_b.dtype == torch.bfloat16
+              and err_k <= max(4 * err_p, 0.1),
+              f"kernel E differs from plain in bfloat16 ({tag})")
+        if tag == "B=1 608x800":
+            errs["stem_fused"] = diff_b.max().item()
+            errs["stem_fused_f32"] = err.max().item()
+
+
+def two_view_scene(seed: int, n: int, outliers: float = 0.3,
+                   noise: float = 0.5):
+    """Seeded two-view scene with the rendered holdout's intrinsics
+    (f = 709.95, centre (400, 304)): a numpy 3-D point cloud seen by two
+    cameras -> pixel correspondences (n,2) x2 with `noise` px of Gaussian
+    noise and a share of uniform outliers, K, the 4x4 T_0to1 and the true
+    inlier mask."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    K = np.array([[709.95, 0, 400], [0, 709.95, 304], [0, 0, 1]])
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2.2, 2.2, n),
+                  rng.uniform(3, 12, n)], -1)
+    w = rng.normal(size=3) * 0.12
+    th = np.linalg.norm(w)
+    k = w / th
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+    t = np.array([rng.choice([-1.0, 1.0]), 0, 0]) + rng.normal(size=3) * 0.3
+
+    def project(P):
+        uv = P @ K.T
+        return uv[:, :2] / uv[:, 2:]
+
+    p0 = project(X) + rng.normal(size=(n, 2)) * noise
+    p1 = project(X @ R.T + t) + rng.normal(size=(n, 2)) * noise
+    bad = rng.uniform(size=n) < outliers
+    p1[bad] = np.stack([rng.uniform(0, 800, bad.sum()),
+                        rng.uniform(0, 608, bad.sum())], -1)
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = R, t
+    return p0.astype(np.float32), p1.astype(np.float32), K, T, ~bad
+
+
+def pose_phase() -> None:
+    """The pose path on the card. The smoke's image pair is a pure shift,
+    degenerate for an essential matrix, so pose runs on seeded
+    correspondences: 8 pairs of 2048, 30% outliers, 0.5 px noise, 512
+    hypotheses, in one `ransac_essential_batch` call."""
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch.eval.megadepth1500 import \
+        run_benchmark_precomputed
+    from accelerated_features_tpu_torch.eval.metrics import \
+        relative_pose_error
+    from accelerated_features_tpu_torch.geometry import \
+        ransac_essential_batch
+    n_pairs, n_pts, n_hyp = 8, 2048, 512
+    scenes = [two_view_scene(100 + s, n_pts) for s in range(n_pairs)]
+    p0 = torch.from_numpy(np.stack([s[0] for s in scenes]))
+    p1 = torch.from_numpy(np.stack([s[1] for s in scenes]))
+    Ks = torch.from_numpy(np.stack([s[2] for s in scenes])).float()
+
+    def run(device, seed):
+        # a CPU generator on either device: the same samples
+        res = ransac_essential_batch(
+            p0.to(device), p1.to(device), Ks.to(device), Ks.to(device),
+            n_hypotheses=n_hyp,
+            generator=torch.Generator(device="cpu").manual_seed(seed))
+        return [f.cpu() for f in res]
+
+    def against_truth(R, t, inl):
+        worst, recall = 0.0, 1.0
+        for i, (_, _, _, T, good) in enumerate(scenes):
+            e = relative_pose_error(T, R[i].double().numpy(),
+                                    t[i].double().numpy())
+            worst = max(worst, e["R_err"], e["t_err"])
+            recall = min(recall, float((inl[i].numpy() & good).sum()
+                                       / good.sum()))
+        return worst, recall
+
+    def between(a, b):
+        """Largest angle in degrees between the rotations and between the
+        translations of two results, and the least share of equal mask
+        entries, over the pairs."""
+        worst, same = 0.0, 1.0
+        for i in range(n_pairs):
+            cos_r = (np.trace(a[0][i].double().numpy().T
+                              @ b[0][i].double().numpy()) - 1) / 2
+            cos_t = float(a[1][i].double() @ b[1][i].double())
+            worst = max(worst, np.degrees(np.arccos(np.clip(cos_r, -1, 1))),
+                        np.degrees(np.arccos(np.clip(cos_t, -1, 1))))
+            same = min(same, float((a[3][i] == b[3][i]).float().mean()))
+        return worst, same
+
+    # The estimator refines its best hypothesis by two rounds of eight
+    # Gauss-Newton steps that are kept only where they lower the cost; a
+    # refused step is proposed again, so a pair can stop short of the
+    # optimum, where it stops depends on float rounding, and the outcome
+    # depends on the draw. Three draws are run on the card and on the CPU
+    # from the same samples. Every draw is held to loose bounds; draw 9 is
+    # held to the tight ones.
+    for seed in (7, 8, 9):
+        on_card, on_cpu = run("cuda", seed), run("cpu", seed)
+        R, t, E, inl, n_inl = on_card
+        check(bool(torch.isfinite(R).all()) and bool(torch.isfinite(t).all())
+              and tuple(R.shape) == (n_pairs, 3, 3)
+              and tuple(inl.shape) == (n_pairs, n_pts),
+              "RANSAC output shapes")
+        worst, recall = against_truth(R, t, inl)
+        vs_cpu, mask_eq = between(on_card, on_cpu)
+        print(f"ransac_essential_batch {n_pairs} pairs x {n_pts} "
+              f"correspondences, {n_hyp} hypotheses, draw {seed}: worst "
+              f"max(R_err, t_err) {worst:.4f} deg, least share of true "
+              f"inliers found {recall:.4f}, inliers {n_inl.tolist()}; cuda "
+              f"vs cpu from the same samples: at most {vs_cpu:.4f} deg "
+              f"apart, masks equal on at least {mask_eq:.4f} of rows")
+        tight = seed == 9
+        check(worst < (2.0 if tight else 5.0),
+              f"a pair's pose error is {worst:.3f} deg (draw {seed})")
+        check(recall >= 0.9, f"only {recall:.3f} of the true inliers found")
+        check(vs_cpu <= (0.2 if tight else 1.5) and mask_eq >= 0.98,
+              f"the batched RANSAC on the card disagrees with the CPU path "
+              f"(draw {seed})")
+
+    pairs = [{"K0": s[2].tolist(), "K1": s[2].tolist(),
+              "T_0to1": s[3].tolist()} for s in scenes]
+    summary = run_benchmark_precomputed([(s[0], s[1]) for s in scenes], pairs,
+                                        pose_backend="gpu")
+    print(f"run_benchmark_precomputed, pose_backend gpu: {summary}")
+    check(summary["n_pairs"] == n_pairs and summary["acc@5"] == 1.0
+          and summary["auc@5"] > 0.5, f"pose summary {summary}")
+
+    dev0, dev1, devK = p0.cuda(), p1.cuda(), Ks.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def batch():
+        return ransac_essential_batch(dev0, dev1, devK, devK,
+                                      n_hypotheses=n_hyp, generator=gen)
+    batch()
+    walls, med = median_wall_ms(batch)
+    print(f"ransac_essential_batch wall ms {walls} (median {med}), samples "
+          f"drawn on the card")
+    profile_call("ransac_essential_batch", batch)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -158,6 +360,10 @@ def main() -> int:
     import torch.nn.functional as F
 
     from accelerated_features_tpu_torch import XFeat, xfeat_forward
+    from accelerated_features_tpu_torch.models.backbone import (
+        input_norm, stem_unfused)
+    from accelerated_features_tpu_torch.models.lighterglue import \
+        _attention as lg_attention
     from accelerated_features_tpu_torch.ops.cuda import _build
     from accelerated_features_tpu_torch.ops.cuda.attention import (
         attention_reference, flash_attention)
@@ -169,6 +375,8 @@ def main() -> int:
         batch_mnn_match_fused
     from accelerated_features_tpu_torch.ops.cuda.mnn import \
         near_ties as mnn_near_ties
+    from accelerated_features_tpu_torch.ops.cuda.stem_fused import (
+        stem_fused, stem_reference)
     from accelerated_features_tpu_torch.ops.detect import (
         heatmap_decode, score_map, select_keypoints, topk_keypoints)
     from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
@@ -351,13 +559,36 @@ def main() -> int:
     qs, ks, vs = attn_inputs(3, 2, 100, 80, 64)
     attn_check("small odd, D=64, masked", qs, ks, vs,
                (torch.rand((2, 80), generator=gm) > 0.4).to(dev))
+    # three heads of width 32 folded into the batch, as LighterGlue's
+    # attention does for heads > 1: one launch, against the plain version
+    # head by head
+    def heads3(t_):
+        return t_.reshape(2, -1, 3, 32).transpose(1, 2).reshape(6, -1, 32)
+    before = flash_attention.launches
+    got = lg_attention(q, k, v, ragged, heads=3)
+    check(flash_attention.launches == before + 1,
+          "multi-head attention did not launch kernel D once")
+    ref = attention_reference(heads3(q), heads3(k), heads3(v),
+                              ragged.repeat_interleave(3, 0), 32 ** -0.5)
+    ref = ref.reshape(2, 3, -1, 32).transpose(1, 2).reshape(2, -1, 96)
     torch.cuda.synchronize()
+    err = (got - ref).abs()
+    errs["attention"] = max(errs["attention"], err.max().item())
+    print(f"check attention 3 heads of width 32, ragged mask "
+          f"q{tuple(q.shape)}: max_abs_err {err.max().item():.3g}")
+    check(bool((err <= 2e-5 + 1e-4 * ref.abs()).all()),
+          "kernel D differs from plain with three heads")
+    torch.cuda.synchronize()
+
+    # kernel E on the normalized images of the main path and at odd sizes
+    check_stem(xf.model.params, input_norm(x).contiguous(), errs)
 
     # ---- 3. end to end through the user API ---------------------------------
     counters = {"detect_fused": detect_candidates,
                 "bicubic": sample_descriptors,
                 "mnn": batch_mnn_match_fused,
-                "attention": flash_attention}
+                "attention": flash_attention,
+                "stem_fused": stem_fused}
     matcher = xf.set_lighterglue(weights=str(lg_weights))
     size = {"image_size": (W, H)}
     for fn in counters.values():
@@ -583,6 +814,86 @@ def main() -> int:
     check(not bool((diff & ~tie).any()) and kerr <= 1e-3 and conf_flip <= 2,
           "XFeat* on the card differs from its plain versions")
 
+    # ---- the throughput configuration ----------------------------------------
+    # bfloat16 backbone with the fused stem, float32 selection, sampling
+    # and matching; counted on its own
+    xf16 = XFeat(weights=str(weights), top_k=TOP_K, detection_threshold=THR,
+                 device="cuda", compute_dtype="bfloat16", fused_stem=True)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    b0, b1 = xf16.match_xfeat(imgs[0], imgs[1])
+    torch.cuda.synchronize()
+    e2e_s = time.time() - t0
+    bf16_launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"main path, bfloat16 + fused stem match_xfeat: {e2e_s:.3f} s, "
+          f"launches {bf16_launches}")
+    check(bf16_launches["stem_fused"] == 2
+          and all(bf16_launches[k] > 0
+                  for k in ("detect_fused", "bicubic", "mnn")),
+          f"a kernel was not launched on this path: {bf16_launches}")
+    launches["stem_fused"] = bf16_launches["stem_fused"]
+    check(len(b0) > 100 and np.isfinite(b0).all() and np.isfinite(b1).all(),
+          f"only {len(b0)} matches in bfloat16")
+    d = b1 - b0 - np.array(SHIFT, np.float32)
+    frac = float(np.mean(np.all(np.abs(d) <= 1.0, axis=1)))
+    print(f"match_xfeat bfloat16 + fused stem: {len(b0)} matches, "
+          f"{frac:.4f} show the shift within 1 px")
+    check(frac >= 0.5, f"only {frac:.3f} of bfloat16 matches show the shift")
+
+    def shared_keypoints(got, ref):
+        """(share of keypoints in both, max abs descriptor difference on
+        the shared ones)."""
+        at = {tuple(p_): i for i, p_ in
+              enumerate(ref["keypoints"].cpu().tolist())}
+        both = [(i, at[tuple(p_)]) for i, p_ in
+                enumerate(got["keypoints"].cpu().tolist()) if tuple(p_) in at]
+        gi_, ri_ = (torch.tensor(c) for c in zip(*both))
+        gap = (got["descriptors"].cpu()[gi_]
+               - ref["descriptors"].cpu()[ri_]).abs().max().item()
+        return len(both) / max(len(at), len(got["keypoints"])), gap
+
+    # against the port's CPU path in the same configuration: cuDNN and the
+    # CPU convs round bfloat16 activations at the same places but sum in
+    # other orders, so keypoints near the threshold, an NMS tie or the
+    # top-k boundary differ; the shared ones carry the same descriptors
+    xf16_cpu = XFeat(weights=str(weights), top_k=TOP_K,
+                     detection_threshold=THR, device="cpu",
+                     compute_dtype="bfloat16", fused_stem=True)
+    got16 = xf16.detectAndCompute(imgs[:1])[0]
+    ref16 = xf16_cpu.detectAndCompute(imgs[:1])[0]
+    share16, gap16 = shared_keypoints(got16, ref16)
+    share32, gap32 = shared_keypoints(got16, outs[0])
+    c0, c1 = xf16_cpu.match_xfeat(imgs[0], imgs[1])
+    cpu_pairs = {tuple(r_) for r_ in np.concatenate([c0, c1], 1).tolist()}
+    gpu_pairs = {tuple(r_) for r_ in np.concatenate([b0, b1], 1).tolist()}
+    pair_share = len(cpu_pairs & gpu_pairs) / max(len(cpu_pairs),
+                                                  len(gpu_pairs))
+    print(f"bfloat16 + fused stem cuda vs cpu: {share16:.4f} of keypoints "
+          f"shared ({len(got16['keypoints'])} vs {len(ref16['keypoints'])}),"
+          f" descriptor max abs err {gap16:.3g} on them; {pair_share:.4f} of "
+          f"matched pairs shared ({len(gpu_pairs)} vs {len(cpu_pairs)}); "
+          f"against the float32 path on the card: {share32:.4f} of keypoints"
+          f" shared, descriptor max abs diff {gap32:.3g}")
+    check(share16 >= 0.9 and gap16 <= 0.03 and pair_share >= 0.8,
+          "the bfloat16 path on the card disagrees with the CPU path")
+    # float32 with the fused stem against the unfused float32 path: the
+    # stem differs by float32 rounding, so the keypoint sets are equal up
+    # to the tie window of the cuda-vs-cpu check above
+    xf_fused = XFeat(weights=str(weights), top_k=TOP_K,
+                     detection_threshold=THR, device="cuda", fused_stem=True)
+    before = stem_fused.launches
+    share_f, gap_f = shared_keypoints(xf_fused.detectAndCompute(imgs[:1])[0],
+                                      outs[0])
+    print(f"float32 fused stem vs unfused on the card: {share_f:.4f} of "
+          f"keypoints shared, descriptor max abs err {gap_f:.3g}")
+    check(stem_fused.launches == before + 1 and share_f >= 0.99
+          and gap_f <= 1e-3,
+          "the float32 fused-stem path disagrees with the unfused path")
+
+    # ---- the pose path ------------------------------------------------------
+    pose_phase()
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
@@ -591,6 +902,13 @@ def main() -> int:
     walls, med = median_wall_ms(lambda: xf.match_xfeat(imgs[0], imgs[1]))
     print(f"match_xfeat launches per call {per_match}; wall ms "
           f"{walls} (median {med})")
+    # float32 against bfloat16 + fused stem, in turns within this run
+    meds = []
+    for tag, m in (("float32", xf), ("bfloat16+fused", xf16),
+                   ("bfloat16+fused", xf16), ("float32", xf)):
+        walls, med = median_wall_ms(lambda: m.match_xfeat(imgs[0], imgs[1]))
+        meds.append((tag, med))
+    print(f"match_xfeat median wall ms, in turns: {meds}")
     for name, fn in (
             ("match_lighterglue", lambda: xf.match_lighterglue(f0, f1)),
             ("match_xfeat_star",
@@ -699,7 +1017,44 @@ def main() -> int:
           f"scaled_dot_product_attention fp32 {lms:.4f} ms (max abs diff to "
           f"kernel {lib_err:.3g}), bound {bms:.4f} ms ({by})")
 
+    # kernel E at B=1, 608x800, the main path's bfloat16 and float32. No
+    # single PyTorch call computes this function. In bfloat16 the operands'
+    # peak is the tensor cores', so bytes bound it; in float32, operations.
+    xg1 = input_norm(x[:1]).contiguous()
+    stem_times = {}
+    for dt in (torch.bfloat16, torch.float32):
+        xin = xg1.to(dt)
+        out = stem_fused(xf.model.params, xin)
+        ms = time_ms(lambda: stem_fused(xf.model.params, xin))
+        pms = time_ms(lambda: stem_reference(xf.model.params, xin), iters=20)
+        nbytes = xin.element_size() * (xin.numel() + out.numel()) + 4 * 2720
+        bms, by = bound(nbytes, stem_flops(1, H, W),
+                        PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32)
+        stem_times[dt] = (ms, pms, bms, by)
+        print(f"time stem_fused B=1 {H}x{W} {dt}: kernel {ms:.4f} ms, plain "
+              f"(cuDNN float32 chain, TF32 off, on {dt} values) {pms:.4f} ms, "
+              f"bound {bms:.5f} ms ({by})")
+    x16 = xg1.to(torch.bfloat16)
+    chain_ms = time_ms(lambda: stem_unfused(xf.model.params, x16), iters=20)
+    print(f"time unfused stem of the backbone in bfloat16 (cuDNN bfloat16 "
+          f"convs): {chain_ms} ms")
+    ms, pms, bms, by = stem_times[torch.bfloat16]
+    ms32, pms32, bms32, by32 = stem_times[torch.float32]
+    rows.append(dict(name="stem_fused", route="cuda",
+                     source="accelerated_features_tpu_torch/csrc/"
+                            "stem_fused.cu",
+                     replaces="accelerated_features_tpu/experiments/"
+                              "stem.py:134",
+                     launches=launches["stem_fused"],
+                     max_abs_err=errs["stem_fused"], ms=ms, plain_ms=pms,
+                     bound_ms=bms, bound_by=by, library_ms=None,
+                     max_abs_err_f32=errs["stem_fused_f32"], ms_f32=ms32,
+                     plain_ms_f32=pms32, bound_ms_f32=bms32,
+                     bound_by_f32=by32))
+
     profile_call("match_xfeat", lambda: xf.match_xfeat(imgs[0], imgs[1]))
+    profile_call("match_xfeat bfloat16 + fused stem",
+                 lambda: xf16.match_xfeat(imgs[0], imgs[1]))
     profile_call("match_lighterglue", lambda: xf.match_lighterglue(f0, f1))
 
     print(json.dumps({"kernels": rows}))

@@ -6,13 +6,18 @@ file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from accelerated_features_tpu_torch.models import lighterglue
+from accelerated_features_tpu_torch.models.backbone import xfeat_forward
+from accelerated_features_tpu_torch.models.params import load_params
 from accelerated_features_tpu_torch.ops.cuda import (attention, bicubic,
-                                                     detect_fused, mnn)
+                                                     detect_fused, mnn,
+                                                     stem_fused)
 from accelerated_features_tpu_torch.ops.detect import heatmap_decode
 from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
 
@@ -157,8 +162,103 @@ def test_lighterglue_attention_routes_to_the_kernel(dev):
     assert attention.flash_attention.launches == n + 1
     torch.testing.assert_close(got, attention.attention_reference(q, k, v),
                                **ATTN_TOL)
-    with pytest.raises(NotImplementedError):
-        lighterglue._attention(q, k, v, None, heads=2)
+
+
+@pytest.mark.parametrize("heads,masked", [(3, True), (3, False), (1, True)])
+def test_multi_head_attention_runs_the_kernel(dev, heads, masked):
+    """Heads folded into the batch: one launch of kernel D on
+    (B*heads, N, 96/heads), against the plain version computed per head
+    on the CPU."""
+    rng = np.random.default_rng(heads)
+    q, k, v = (torch.tensor(rng.normal(size=(2, n, 96)), dtype=torch.float32)
+               for n in (150, 200, 200))
+    mask = torch.tensor(rng.uniform(size=(2, 200)) > 0.3) if masked else None
+    ref = lighterglue._attention(q, k, v, mask, heads=heads)
+    n = attention.flash_attention.launches
+    got = lighterglue._attention(q.to(dev), k.to(dev), v.to(dev),
+                                 None if mask is None else mask.to(dev),
+                                 heads=heads)
+    assert attention.flash_attention.launches == n + 1
+    torch.testing.assert_close(got.cpu(), ref, **ATTN_TOL)
+    with pytest.raises(ValueError):  # head width 48: not built
+        lighterglue._attention(q.to(dev), k.to(dev), v.to(dev), None, heads=2)
+
+
+def stem_params(seed):
+    """Random folded block1 + skip weights from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    chans = [(1, 4), (4, 8), (8, 8), (8, 24)]
+    block1 = [{"w": torch.tensor(rng.normal(size=(co, ci, 3, 3))
+                                 * (2.0 / (9 * ci)) ** 0.5,
+                                 dtype=torch.float32),
+               "b": torch.tensor(rng.normal(size=co) * 0.3,
+                                 dtype=torch.float32)} for ci, co in chans]
+    skip = {"w": torch.tensor(rng.normal(size=(24, 1, 1, 1)),
+                              dtype=torch.float32),
+            "b": torch.tensor(rng.normal(size=24) * 0.3, dtype=torch.float32)}
+    return {"block1": block1, "skip1": skip}
+
+
+def to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_dev(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+STEM_SHAPES = [(1, 608, 800), (4, 608, 800), (2, 96, 64), (2, 160, 224),
+               (3, 32, 32)]
+
+
+@pytest.mark.parametrize("b,h,w", STEM_SHAPES)
+def test_stem_kernel_matches_plain_f32(dev, b, h, w):
+    """Tiles that do not divide the /4 output, one-tile images, batches;
+    the JAX package's float32 gate for its stem kernel."""
+    params = to_dev(stem_params(h + w), dev)
+    xg = torch.tensor(np.random.default_rng(b).normal(size=(b, 1, h, w)),
+                      dtype=torch.float32, device=dev)
+    n = stem_fused.stem_fused.launches
+    got = stem_fused.stem_fused(params, xg)
+    assert stem_fused.stem_fused.launches == n + 1
+    ref = stem_fused.stem_reference(params, xg)
+    assert got.shape == ref.shape == (b, 24, h // 4, w // 4)
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,h,w", STEM_SHAPES)
+def test_stem_kernel_matches_plain_bf16(dev, b, h, w):
+    """bfloat16: the kernel's deviation from the float32 result is no more
+    than max(4 x the plain bfloat16 version's, 0.1), in units of the
+    float32 output's standard deviation (the JAX package's rule)."""
+    params = to_dev(stem_params(h + w), dev)
+    xg = torch.tensor(np.random.default_rng(b).normal(size=(b, 1, h, w)),
+                      dtype=torch.float32, device=dev).to(torch.bfloat16)
+    f32 = stem_fused.stem_reference(params, xg.float())
+    got = stem_fused.stem_fused(params, xg)
+    ref = stem_fused.stem_reference(params, xg)
+    assert got.dtype == torch.bfloat16
+    scale = f32.std()
+    err_k = float((got.float() - f32).abs().max() / scale)
+    err_p = float((ref.float() - f32).abs().max() / scale)
+    assert err_k < max(4 * err_p, 0.1), (err_k, err_p)
+
+
+def test_backbone_routes_to_the_stem_kernel(dev):
+    ckpt = Path(__file__).resolve().parents[1] / "artifacts" \
+        / "run_md_ckpt13250.npz"
+    params = to_dev(load_params(str(ckpt)), dev)
+    x = torch.tensor(np.random.default_rng(0).uniform(size=(2, 96, 128, 3)),
+                     dtype=torch.float32, device=dev)
+    n = stem_fused.stem_fused.launches
+    fused = xfeat_forward(params, x, fused_stem=True)
+    assert stem_fused.stem_fused.launches == n + 1
+    plain = xfeat_forward(params, x)
+    assert stem_fused.stem_fused.launches == n + 1
+    for a, b in zip(fused, plain):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+    xfeat_forward(params, x, compute_dtype=torch.bfloat16, fused_stem=True)
+    assert stem_fused.stem_fused.launches == n + 2
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
@@ -176,6 +276,12 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         bicubic.sample_descriptors(torch.zeros(1, 2, 2, 32, device=dev),
                                    torch.zeros(1, 3, 2, device=dev), (16, 16))
+    with pytest.raises(ValueError):  # H not divisible by 32
+        stem_fused.stem_fused(to_dev(stem_params(0), dev),
+                              torch.zeros(1, 1, 48, 64, device=dev))
+    with pytest.raises(ValueError):  # weights on another device
+        stem_fused.stem_fused(stem_params(0),
+                              torch.zeros(1, 1, 32, 32, device=dev))
     with pytest.raises(ValueError):
         d2 = torch.zeros(1, 64, 4, device=dev).transpose(1, 2)  # strided
         mnn.batch_mnn_match_fused(torch.zeros(1, 4, 64, device=dev), d2)

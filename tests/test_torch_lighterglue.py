@@ -255,7 +255,8 @@ def test_lighterglue_forward_matches_jax(params, width_confidence):
 
 
 def test_attention_multi_head_plain_matches_jax():
-    """heads > 1 exists on the CPU path only (the kernel has one head)."""
+    """heads > 1 folds the heads into the batch; on CPU tensors that runs
+    the attention kernel's plain version."""
     q, k, v = qkv(7, 2, 20, 24, 96)
     mask = np.random.default_rng(7).uniform(size=(2, 24)) > 0.3
     ref = jax.jit(functools.partial(jlg._attention, heads=2))(
