@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is a kernel with a plain C interface. At first use,
+Every `csrc/*.cu` file is a kernel with a plain C interface (`csrc/*.cuh`
+are headers they share). At first use,
 each one is compiled by its own `nvcc` process (all started together) into
 a shared library for Hopper (`sm_90a`), under `_build/<hash>/` beside the
 sources; the hash covers every source and the flags, so an edited source
@@ -51,8 +52,8 @@ def sources() -> Dict[str, Path]:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name, path in sources().items():
-        h.update(name.encode())
+    for path in [*sources().values(), *sorted(SRC_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 

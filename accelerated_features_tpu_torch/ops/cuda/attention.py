@@ -2,10 +2,18 @@
 (`csrc/attention.cu`).
 
 Counterpart of the TPU kernel `flash_attention` in
-`accelerated_features_tpu/ops/pallas/attention.py`. `flash_attention`
-launches the kernel on CUDA tensors; on CPU tensors it runs the plain
-version, `attention_reference`. `flash_attention.launches` counts kernel
-launches.
+`accelerated_features_tpu/ops/pallas/attention.py` (`_attn_kernel`).
+`flash_attention` launches the kernel on CUDA tensors; on CPU tensors it
+runs the plain version, `attention_reference`. `flash_attention.launches`
+counts kernel launches.
+
+The kernel computes both products on the H100's tensor cores at float32
+grade (3xTF32: every float32 operand split into a TF32 head and tail, three
+`mma.sync` products an output, float32 accumulation), with K and V tiles
+staged by `cp.async` through a three-stage ring of shared memory and the
+online softmax kept in registers. It is bound by operations: the least
+time is 3 * 4*Nq*keys*D / 495 TFLOP/s (dense TF32 peak) for the unmasked
+keys. `ops.precision.tf32x3_matmul` emulates its arithmetic on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ from . import _build
 
 NEG = -1e9
 HEAD_DIMS = (32, 64, 96)  # the widths csrc/attention.cu is built for
-_TILE = 64        # query and key tile of the kernel (BM, BN)
+_TILE_Q = 128     # query rows of a block (BM of the kernel)
+_TILE_K = 64      # keys of a tile (BN of the kernel)
 _MAX_SPLITS = 16  # bounds the scratch of the key split
 
 
@@ -69,22 +78,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"mask_k must be ({b}, {nk}), got "
                              f"{tuple(mask_k.shape)}")
     dev = q.device
-    # split the keys until the grid gives every SM about two blocks
-    q_tiles, k_tiles = -(-nq // _TILE), -(-nk // _TILE)
+    # A block takes the whole SM (eight warps, up to 205 KB of shared
+    # memory), so the keys are split only while the grid stays within one
+    # block an SM: a larger grid would run in two waves. One split needs
+    # no scratch and no merge.
+    q_tiles, k_tiles = -(-nq // _TILE_Q), -(-nk // _TILE_K)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(-(-2 * sms // (b * q_tiles)), k_tiles, _MAX_SPLITS))
+    splits = max(1, min(sms // (b * q_tiles), k_tiles, _MAX_SPLITS))
     splits = -(-k_tiles // -(-k_tiles // splits))  # no empty split
-    part_acc = torch.empty((b, splits, nq, d), dtype=torch.float32,
-                           device=dev)
-    part_ml = torch.empty((b, splits, nq, 2), dtype=torch.float32, device=dev)
+    null = ctypes.c_void_p(None)
+    part_acc = part_ml = None
+    if splits > 1:
+        part_acc = torch.empty((b, splits, nq, d), dtype=torch.float32,
+                               device=dev)
+        part_ml = torch.empty((b, splits, nq, 2), dtype=torch.float32,
+                              device=dev)
     out = torch.empty((b, nq, d), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         _build.launch(lib, "attention_forward", _build.ptr(q), _build.ptr(k),
                       _build.ptr(v),
-                      ctypes.c_void_p(None) if mask_k is None
-                      else _build.ptr(mask_k),
-                      _build.ptr(part_acc), _build.ptr(part_ml),
+                      null if mask_k is None else _build.ptr(mask_k),
+                      null if part_acc is None else _build.ptr(part_acc),
+                      null if part_ml is None else _build.ptr(part_ml),
                       _build.ptr(out), b, nq, nk, d, ctypes.c_float(scale),
                       splits, _build.stream(q))
     flash_attention.launches += 1

@@ -1,9 +1,19 @@
 """Kernel C: fused mutual-nearest-neighbour matching (`csrc/mnn.cu`).
 
-Counterpart of the TPU kernel in `accelerated_features_tpu/ops/pallas/
-mnn.py`. `batch_mnn_match_fused` launches the kernel on CUDA tensors; on
-CPU tensors it runs the plain version, `ops.matching.batch_mnn_match`.
-`batch_mnn_match_fused.launches` counts kernel launches.
+Counterpart of the TPU kernel `_mnn_kernel` in
+`accelerated_features_tpu/ops/pallas/mnn.py`. `batch_mnn_match_fused`
+launches the kernel on CUDA tensors; on CPU tensors it runs the plain
+version, `ops.matching.batch_mnn_match`. `batch_mnn_match_fused.launches`
+counts kernel launches.
+
+The kernel computes the similarities on the H100's tensor cores at float32
+grade (3xTF32: every float32 operand split into a TF32 head and tail, three
+`mma.sync` products an output, float32 accumulation). A block keeps a panel
+of 128 rows of `d1` in shared memory and walks column tiles of `d2` staged
+by `cp.async` through a three-stage ring; the row argmax stays in registers
+over the whole walk. It is bound by operations: the least time is
+3 * 2*K1*K2*64 / 495 TFLOP/s (dense TF32 peak).
+`ops.precision.tf32x3_matmul` emulates its arithmetic on the CPU.
 """
 
 from __future__ import annotations
@@ -27,8 +37,10 @@ def batch_mnn_match_fused(d1: torch.Tensor, d2: torch.Tensor,
     `batch_mnn_match` (`min_cossim` <= 0 disables the gate)."""
     if d1.device.type == "cpu":
         return batch_mnn_match(d1, d2, valid1, valid2, min_cossim)
-    _build.check_cuda(d1, "d1", torch.float32, 3)
-    _build.check_cuda(d2, "d2", torch.float32, 3)
+    for t, name in ((d1, "d1"), (d2, "d2")):
+        _build.check_cuda(t, name, torch.float32, 3)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     b, k1, c = d1.shape
     k2 = d2.shape[1]
     if c != 64 or d2.shape[0] != b or d2.shape[2] != c or k1 == 0 or k2 == 0:
@@ -41,8 +53,7 @@ def batch_mnn_match_fused(d1: torch.Tensor, d2: torch.Tensor,
                 raise ValueError(f"{name} must be ({b}, {k}), got "
                                  f"{tuple(v.shape)}")
     dev = d1.device
-    rowkey = torch.empty((b, k1), dtype=torch.int64, device=dev)
-    colkey = torch.empty((b, k2), dtype=torch.int64, device=dev)
+    keys = torch.empty(b * (k1 + k2), dtype=torch.int64, device=dev)
     idx1 = torch.empty((b, k1), dtype=torch.int64, device=dev)
     mask = torch.empty((b, k1), dtype=torch.bool, device=dev)
     null = ctypes.c_void_p(None)
@@ -51,9 +62,9 @@ def batch_mnn_match_fused(d1: torch.Tensor, d2: torch.Tensor,
         _build.launch(lib, "mnn_match", _build.ptr(d1), _build.ptr(d2),
                       null if valid1 is None else _build.ptr(valid1),
                       null if valid2 is None else _build.ptr(valid2),
-                      _build.ptr(rowkey), _build.ptr(colkey),
-                      _build.ptr(idx1), _build.ptr(mask), b, k1, k2,
-                      ctypes.c_float(min_cossim), _build.stream(d1))
+                      _build.ptr(keys), _build.ptr(idx1), _build.ptr(mask),
+                      b, k1, k2, ctypes.c_float(min_cossim),
+                      _build.stream(d1))
     batch_mnn_match_fused.launches += 1
     return idx1, mask
 
@@ -82,9 +93,9 @@ def near_ties(d1: torch.Tensor, d2: torch.Tensor,
     """Where two correct float32 MNNs may differ, judged in float64.
 
     Two float32 implementations that sum the 64 products in different
-    orders (the kernel's FMA chain, a GEMM library) round similarities
-    differently by ~1e-7, so they may pick different columns where the
-    top two lie within `eps`. Returns (B,K1) bool `tie`: rows whose top
+    orders (the kernel's tensor-core tiles, a GEMM library) round
+    similarities differently by ~1e-7, so they may pick different columns
+    where the top two lie within `eps`. Returns (B,K1) bool `tie`: rows whose top
     two valid columns, or whose best column's top two valid rows, lie
     within `eps`, or whose best similarity lies within `eps` of an active
     `min_cossim`; and (B,K1) float64 `sim_max`, each row's best similarity
@@ -115,7 +126,7 @@ def near_ties(d1: torch.Tensor, d2: torch.Tensor,
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("mnn")
-    lib.mnn_match.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    lib.mnn_match.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                               + [ctypes.c_float, ctypes.c_void_p])
     lib.mnn_match.restype = ctypes.c_int
     return lib

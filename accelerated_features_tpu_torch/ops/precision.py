@@ -1,4 +1,5 @@
-"""Numeric precision switches shared by the backbone and the stem."""
+"""Numeric precision: the switches shared by the backbone and the stem, and
+the CPU emulation of the 3xTF32 tensor-core products of kernels C and D."""
 
 from __future__ import annotations
 
@@ -22,3 +23,52 @@ def full_fp32_convs():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), nearest with ties away
+    from zero, as `cvt.rna.tf32.f32` does: integer arithmetic on the bits.
+    The sign-magnitude layout makes adding half a step to the magnitude and
+    clearing the 13 low bits exactly that rounding."""
+    bits = x.contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    sign = bits & -0x80000000
+    return (sign | mag).view(torch.float32)
+
+
+def tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """Cut float32 to TF32 by clearing the 13 low bits: what a tensor core
+    reads of a float32 operand handed to it as it is."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor, cut: bool = False):
+    """float32 x -> (hi, lo), both TF32 values with x ~ hi + lo:
+    hi = tf32(x), lo = tf32(x - hi), where x - hi is exact in float32.
+    `tf32` rounds to nearest (`csrc/tf32x3.cuh: split`, kernel C) or, with
+    `cut`, clears the low bits (`split_cut`, kernel D)."""
+    to_tf32 = tf32_cut if cut else tf32_round
+    hi = to_tf32(x)
+    return hi, to_tf32(x - hi)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both operands rounded to TF32 once and float32
+    accumulation: what a single tensor-core pass gives (~1e-3 relative)."""
+    return torch.matmul(tf32_round(a), tf32_round(b))
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor,
+                  cut: bool = False) -> torch.Tensor:
+    """a @ b as kernels C and D compute it, emulated in plain torch: each
+    float32 operand split into a TF32 head and tail (`tf32_split`), three
+    products with float32 accumulation, summed small first
+    (lo_a.hi_b + hi_a.lo_b, then + hi_a.hi_b). The dropped lo_a.lo_b term
+    is ~2^-22 relative (2^-20 with `cut`). The products of TF32 values are
+    exact in float32, as on the tensor cores; the order of the additions
+    inside a product differs from the card's. Used by tests to say on the
+    CPU whether 3xTF32 keeps a float32 gate."""
+    a_hi, a_lo = tf32_split(a, cut)
+    b_hi, b_lo = tf32_split(b, cut)
+    small = torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)
+    return small + torch.matmul(a_hi, b_hi)

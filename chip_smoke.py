@@ -9,7 +9,10 @@ Run from the root of a checkout. In order, it
   2. holds each kernel against its plain torch version on the card, at the
      shapes of the main path (800x608 images, top_k=4096; attention over
      4096 keypoints of width 96, one head and three; the fused stem in
-     float32 and bfloat16);
+     float32 and bfloat16) and, for the two tensor-core kernels, at ragged
+     ones (MNN at K1 != K2 off the row panel; attention at every head
+     width with a ragged last key tile, a masked tail and a key range that
+     ends inside a split);
   3. drives the three matchers end to end with the repository's trained
      extractor `artifacts/run_md_ckpt13250.npz` and trained matcher
      `artifacts/lighterglue_ft_ckpt7791.npz`: `detectAndCompute` on a batch
@@ -26,7 +29,7 @@ Run from the root of a checkout. In order, it
      `run_benchmark_precomputed`;
   5. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function, and
-     profiles one `match_xfeat` and one `match_lighterglue` call.
+     profiles one call of each matcher.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
 and, last, `{"ok": true, "device": {...}}`. Without a GPU, or outside a
 checkout, it exits non-zero and prints no result.
@@ -46,9 +49,12 @@ THR = 0.05
 SHIFT = (24, 16)         # (dx, dy) of the rolled copy
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32 FLOP/s on
-# the CUDA cores (no tensor cores), dense bf16 FLOP/s on the tensor cores
+# the CUDA cores (no tensor cores), dense TF32 and bf16 FLOP/s on the
+# tensor cores. A float32-grade product on the tensor cores takes three TF32
+# products (3xTF32), so its operations count three times against PEAK_TF32.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 
 
@@ -399,9 +405,18 @@ def main() -> int:
         for i, line in enumerate(log):
             if "Compiling entry function" in line:
                 fn_name = line.split("'")[1]
-                print(f"ptxas {name} {fn_name}: "
-                      + "; ".join(x.strip() for x in log[i + 2:i + 4])
-                      .replace("ptxas info    : ", ""))
+                report = "; ".join(x.strip() for x in log[i + 2:i + 4]) \
+                    .replace("ptxas info    : ", "")
+                print(f"ptxas {name} {fn_name}: {report}")
+                no_spills = ", 0 bytes spill stores, 0 bytes spill loads"
+                check(name not in ("mnn", "attention") or no_spills in report,
+                      f"{name} {fn_name} spills registers: {report}")
+    mnn_lib, attn_lib = _build.library("mnn"), _build.library("attention")
+    print(f"dynamic shared memory a block: mnn_panel_kernel "
+          f"{mnn_lib.mnn_smem_bytes()} bytes; attn_partial_kernel "
+          + ", ".join(f"D={d_} {attn_lib.attention_smem_bytes(d_, 16)}"
+                      for d_ in (32, 64, 96))
+          + " bytes (16 key tiles a split)")
 
     # ---- 2. each kernel against its plain version --------------------------
     xf = XFeat(weights=str(weights), top_k=TOP_K, detection_threshold=THR,
@@ -473,7 +488,8 @@ def main() -> int:
             # may differ only at float64 near-ties (top two within 1e-6);
             # elsewhere idx1 and mask must be identical, and the column the
             # kernel picks must be within 1e-6 of the row's best similarity.
-            # A kernel computing in TF32 or bf16 (errors ~1e-3) fails this.
+            # The kernel's 3xTF32 products keep this; one TF32 or bf16 pass
+            # (errors ~1e-3) fails it.
             d1, d2 = desc, desc.roll(1, dims=0).contiguous()
             i_k, m_k = batch_mnn_match_fused(d1, d2, va, vb, gate)
             i_p, m_p = batch_mnn_match(d1, d2, va, vb, gate)
@@ -507,6 +523,38 @@ def main() -> int:
                   f"{(m_k != m_p).sum().item()} mask")
             print(f"check mnn exact B=4 K={TOP_K} {tag}: identical, "
                   f"matches {m_k.sum(1).tolist()}")
+    # kernel C at K1 != K2 and off the 128-row panel and the 64-column
+    # tile (XFeat* matches 4095 cells; ragged top-k gives any size): the
+    # same two gates on slices of the real descriptors
+    for b_, k1_, k2_ in ((1, 4095, 3001), (4, 3001, 4095), (2, 130, 4000),
+                         (4, 1000, 77)):
+        ra = desc[:b_, :k1_].contiguous()
+        rb = desc.roll(1, dims=0)[:b_, :k2_].contiguous()
+        for va, vb in ((None, None), (v1[:b_, :k1_].contiguous(),
+                                      v2[:b_, :k2_].contiguous())):
+            tag = f"B={b_} {k1_}x{k2_} masks={va is not None}"
+            i_k, m_k = batch_mnn_match_fused(ra, rb, va, vb, 0.82)
+            i_p, m_p = batch_mnn_match(ra, rb, va, vb, 0.82)
+            tie, smax = mnn_near_ties(ra, rb, va, vb, 0.82, eps=1e-6)
+            diff = (i_k != i_p) | (m_k != m_p)
+            picked = (ra.double() * torch.gather(
+                rb.double(), 1, i_k[..., None].expand(-1, -1, 64))).sum(-1)
+            has = smax > -1e8
+            short = (smax - picked)[has].max().item() if bool(has.any()) \
+                else 0.0
+            errs["mnn"] = max(errs["mnn"], short)
+            xa, xb = (torch.round(t_ * 128) / 128 for t_ in (ra, rb))
+            e_k = batch_mnn_match_fused(xa, xb, va, vb, 0.82)
+            e_p = batch_mnn_match(xa, xb, va, vb, 0.82)
+            exact = torch.equal(e_k[0], e_p[0]) and torch.equal(e_k[1],
+                                                                e_p[1])
+            print(f"check mnn {tag}: {int(diff.sum())} rows differ, "
+                  f"{int((diff & ~tie).sum())} off near-ties, picked at most "
+                  f"{short:.3g} below the row max; on 1/128-rounded "
+                  f"descriptors identical: {exact}; matches "
+                  f"{m_k.sum(1).tolist()}")
+            check(not bool((diff & ~tie).any()) and short <= 1e-6 and exact,
+                  f"kernel C differs from plain ({tag})")
     d1, d2 = desc, desc.roll(1, dims=0).contiguous()  # timed below
 
     # kernel D at LighterGlue's shapes (4096 keypoints, width 96, scale
@@ -559,6 +607,25 @@ def main() -> int:
     qs, ks, vs = attn_inputs(3, 2, 100, 80, 64)
     attn_check("small odd, D=64, masked", qs, ks, vs,
                (torch.rand((2, 80), generator=gm) > 0.4).to(dev))
+    # every head width with a ragged last key tile (Nk not a multiple of
+    # 64), every key of the tail tiles masked (those tiles are skipped),
+    # and key ranges that end inside the last split (63 and 65 key tiles)
+    gd = torch.Generator(device="cpu").manual_seed(11)
+    for d_ in (32, 64, 96):
+        for b_, nq_, nk_, tail in ((1, TOP_K, 4001, 3900),
+                                   (1, TOP_K, 4160, 4100),
+                                   (2, 1000, 2111, 1500), (3, 200, 333, 256)):
+            qd, kd, vd = attn_inputs(d_ + nk_, b_, nq_, nk_, d_)
+            md = torch.rand((b_, nk_), generator=gd) > 0.1
+            md[:, tail:] = False
+            attn_check(f"D={d_} ragged keys, no mask", qd, kd, vd, None)
+            attn_check(f"D={d_} ragged keys, masked from {tail}", qd, kd, vd,
+                       md.to(dev))
+            md[0] = False
+            got = attn_check(f"D={d_} ragged keys, item 0 fully masked", qd,
+                             kd, vd, md.to(dev))
+            check(bool(((got[0] - vd[0].mean(0)).abs() <= 1e-5).all()),
+                  f"a fully masked item must get the mean of V (D={d_})")
     # three heads of width 32 folded into the batch, as LighterGlue's
     # attention does for heads > 1: one launch, against the plain version
     # head by head
@@ -936,7 +1003,8 @@ def main() -> int:
                               "detect_fused.py:70",
                      launches=launches["detect_fused"],
                      max_abs_err=errs["detect_fused"], ms=ms, plain_ms=pms,
-                     bound_ms=bms, bound_by=by, library_ms=None))
+                     bound_ms=bms, bound_by=by,
+                     bound_peak="fp32 CUDA-core peak", library_ms=None))
     ms4 = time_ms(lambda: detect_candidates(kheat, rel, THR))
     print(f"time detect_fused B=1: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
           f"bound {bms:.4f} ms ({by}); B=4: kernel {ms4:.4f} ms")
@@ -963,7 +1031,8 @@ def main() -> int:
                               "bicubic.py:46",
                      launches=launches["bicubic"],
                      max_abs_err=errs["bicubic"], ms=ms, plain_ms=pms,
-                     bound_ms=bms, bound_by=by, library_ms=lms))
+                     bound_ms=bms, bound_by=by,
+                     bound_peak="fp32 CUDA-core peak", library_ms=lms))
     print(f"time bicubic K={TOP_K}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
           f"grid_sample+normalize {lms:.4f} ms (max abs diff to kernel "
           f"{lib_err:.3g}), bound {bms:.4f} ms ({by}); also replaces "
@@ -974,19 +1043,23 @@ def main() -> int:
     ms = time_ms(lambda: batch_mnn_match_fused(a, b_, va, vb, -1.0))
     pms = time_ms(lambda: batch_mnn_match(a, b_, va, vb, -1.0), iters=20)
     nbytes = 4 * (a.numel() + b_.numel()) + 2 * TOP_K + 9 * TOP_K
-    bms, by = bound(nbytes, 2.0 * TOP_K * TOP_K * 64)
+    # 3xTF32: three tensor-core products an output
+    bms, by = bound(nbytes, 3 * 2.0 * TOP_K * TOP_K * 64, PEAK_TF32)
     rows.append(dict(name="mnn", route="cuda",
                      source="accelerated_features_tpu_torch/csrc/mnn.cu",
                      replaces="accelerated_features_tpu/ops/pallas/mnn.py:40",
                      launches=launches["mnn"], max_abs_err=errs["mnn"],
                      ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                     library_ms=None))
+                     bound_peak="3 x operations at the TF32 tensor-core "
+                                "peak", library_ms=None))
     print(f"time mnn K1=K2={TOP_K}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"bound {bms:.4f} ms ({by})")
+          f"bound {bms:.4f} ms ({by}, 3xTF32 at {PEAK_TF32 / 1e12:.0f} "
+          f"TFLOP/s)")
 
-    # kernel D at B=1, Nq=Nk=4096, D=96 with 10% of the keys masked. The
-    # kernel scores masked keys too, but the function needs only the
-    # unmasked ones, so the bound counts those.
+    # kernel D at B=1, Nq=Nk=4096, D=96 with 10% of the keys masked at
+    # random (no key tile is all masked, so the kernel scores every key).
+    # The function needs only the unmasked ones, so the bound counts those,
+    # three TF32 products an output.
     q1, k1, v1_ = (t_[:1].contiguous() for t_ in (q, k, v))
     m1 = (torch.rand((1, TOP_K), generator=gm) > 0.1).to(dev)
     scale = 96 ** -0.5
@@ -1003,7 +1076,7 @@ def main() -> int:
     lms = time_ms(library)
     nbytes = 4 * (q1.numel() + k1.numel() + v1_.numel() + out.numel()) \
         + m1.numel()
-    bms, by = bound(nbytes, 4.0 * TOP_K * int(m1.sum()) * 96)
+    bms, by = bound(nbytes, 3 * 4.0 * TOP_K * int(m1.sum()) * 96, PEAK_TF32)
     rows.append(dict(name="attention", route="cuda",
                      source="accelerated_features_tpu_torch/csrc/"
                             "attention.cu",
@@ -1011,11 +1084,14 @@ def main() -> int:
                               "attention.py:35",
                      launches=launches["attention"],
                      max_abs_err=errs["attention"], ms=ms, plain_ms=pms,
-                     bound_ms=bms, bound_by=by, library_ms=lms))
+                     bound_ms=bms, bound_by=by,
+                     bound_peak="3 x operations at the TF32 tensor-core "
+                                "peak", library_ms=lms))
     print(f"time attention Nq=Nk={TOP_K} D=96, {int(m1.sum())} keys "
           f"unmasked: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
           f"scaled_dot_product_attention fp32 {lms:.4f} ms (max abs diff to "
-          f"kernel {lib_err:.3g}), bound {bms:.4f} ms ({by})")
+          f"kernel {lib_err:.3g}), bound {bms:.4f} ms ({by}, 3xTF32 at "
+          f"{PEAK_TF32 / 1e12:.0f} TFLOP/s)")
 
     # kernel E at B=1, 608x800, the main path's bfloat16 and float32. No
     # single PyTorch call computes this function. In bfloat16 the operands'
@@ -1047,7 +1123,9 @@ def main() -> int:
                               "stem.py:134",
                      launches=launches["stem_fused"],
                      max_abs_err=errs["stem_fused"], ms=ms, plain_ms=pms,
-                     bound_ms=bms, bound_by=by, library_ms=None,
+                     bound_ms=bms, bound_by=by,
+                     bound_peak="bf16 tensor-core peak (float32 row: fp32 "
+                                "CUDA-core peak)", library_ms=None,
                      max_abs_err_f32=errs["stem_fused_f32"], ms_f32=ms32,
                      plain_ms_f32=pms32, bound_ms_f32=bms32,
                      bound_by_f32=by32))
@@ -1056,6 +1134,8 @@ def main() -> int:
     profile_call("match_xfeat bfloat16 + fused stem",
                  lambda: xf16.match_xfeat(imgs[0], imgs[1]))
     profile_call("match_lighterglue", lambda: xf.match_lighterglue(f0, f1))
+    profile_call("match_xfeat_star",
+                 lambda: xf.match_xfeat_star(imgs[0], imgs[1]))
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -65,7 +65,8 @@ def test_bicubic_kernel_matches_plain(dev, b, h, w, k):
 
 
 @pytest.mark.parametrize("k1,k2,gate", [(100, 37, -1.0), (129, 300, 0.2),
-                                        (64, 64, 0.82)])
+                                        (64, 64, 0.82), (4095, 3001, 0.2),
+                                        (257, 4100, -1.0), (1, 1, -1.0)])
 def test_mnn_kernel_matches_plain(dev, k1, k2, gate):
     # small integers / 8: exact similarities, many ties
     g = torch.Generator().manual_seed(k1 + k2)
@@ -108,6 +109,36 @@ def test_mnn_kernel_matches_plain_on_fp32_descriptors(dev, gate):
     assert int(m_k.sum()) > 100
 
 
+@pytest.mark.parametrize("b,k1,k2", [(1, 4095, 3001), (3, 300, 257),
+                                     (1, 130, 4200)])
+def test_mnn_kernel_at_sizes_off_the_row_panel(dev, b, k1, k2):
+    """K1 != K2, neither a multiple of the 128-row panel or the 64-column
+    tile, few and many column splits: the fp32 near-tie gate, and exact
+    agreement on descriptors rounded to 1/128."""
+    rng = np.random.default_rng(k1 + k2)
+    d1 = rng.normal(size=(b, k1, 64))
+    d2 = d1[:, rng.integers(0, k1, k2)] + rng.normal(size=(b, k2, 64)) * 0.5
+    d1 /= np.linalg.norm(d1, axis=-1, keepdims=True)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    d1, d2 = (torch.tensor(d, dtype=torch.float32, device=dev)
+              for d in (d1, d2))
+    v1 = torch.tensor(rng.uniform(size=(b, k1)) > 0.2, device=dev)
+    v2 = torch.tensor(rng.uniform(size=(b, k2)) > 0.2, device=dev)
+    for va, vb in ((None, None), (v1, v2)):
+        i_k, m_k = mnn.batch_mnn_match_fused(d1, d2, va, vb, 0.82)
+        i_p, m_p = batch_mnn_match(d1, d2, va, vb, 0.82)
+        tie, smax = mnn.near_ties(d1, d2, va, vb, 0.82, eps=1e-6)
+        diff = (i_k != i_p) | (m_k != m_p)
+        assert not bool((diff & ~tie).any())
+        picked = (d1.double() * torch.gather(
+            d2.double(), 1, i_k[..., None].expand(-1, -1, 64))).sum(-1)
+        assert float((smax - picked)[smax > -1e8].max()) <= 1e-6
+        r1, r2 = (torch.round(d * 128) / 128 for d in (d1, d2))
+        i_k, m_k = mnn.batch_mnn_match_fused(r1, r2, va, vb, 0.82)
+        i_p, m_p = batch_mnn_match(r1, r2, va, vb, 0.82)
+        assert torch.equal(i_k, i_p) and torch.equal(m_k, m_p)
+
+
 ATTN_TOL = dict(atol=2e-5, rtol=1e-4)
 
 
@@ -127,6 +158,27 @@ def test_attention_kernel_matches_plain(dev, b, nq, nk, d, masked):
     assert attention.flash_attention.launches == n + 1
     ref = attention.attention_reference(q, k, v, mask)
     torch.testing.assert_close(got, ref, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("d", [32, 64, 96])
+@pytest.mark.parametrize("b,nq,nk,tail", [(1, 4096, 4001, 3900),
+                                          (2, 1000, 2111, 1500),
+                                          (1, 200, 333, 256),
+                                          (1, 4096, 4160, 4100)])
+def test_attention_kernel_masked_tail_and_ragged_splits(dev, d, b, nq, nk,
+                                                        tail):
+    """Nk not a multiple of the 64-key tile; every key from `tail` on
+    masked, so whole tail tiles are skipped; key ranges that end inside the
+    last split (4001 and 4160 keys: 63 and 65 tiles over several splits)."""
+    rng = np.random.default_rng(nq + nk + d)
+    q, k, v = (torch.tensor(rng.normal(size=(b, n, d)), dtype=torch.float32,
+                            device=dev) for n in (nq, nk, nk))
+    mask = torch.tensor(rng.uniform(size=(b, nk)) > 0.1, device=dev)
+    mask[:, tail:] = False
+    for m in (None, mask):
+        got = attention.flash_attention(q, k, v, m)
+        ref = attention.attention_reference(q, k, v, m)
+        torch.testing.assert_close(got, ref, **ATTN_TOL)
 
 
 def test_attention_kernel_masked_keys(dev):
