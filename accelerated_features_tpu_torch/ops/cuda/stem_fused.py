@@ -90,9 +90,10 @@ _packed = WeakIdKeyDictionary()
 
 
 def pack_params(params: Dict[str, Any], dtype: torch.dtype) -> torch.Tensor:
-    """The (2720,) float32 vector `csrc/stem_fused.cu` reads: conv weights
-    as [ci][dy][dx][co], then the four biases, the skip weight / 16 and
-    the skip bias. Cached until a weight tensor is replaced or written."""
+    """The (2720,) float32 host vector of `csrc/stem_fused.cu`'s
+    parameters, which the kernel takes by value at launch: conv weights as
+    [ci][dy][dx][co], then the four biases, the skip weight / 16 and the
+    skip bias. Cached until a weight tensor is replaced or written."""
     tensors = [p[k] for p in params["block1"] for k in ("w", "b") if k in p]
     tensors += [params["skip1"]["w"], params["skip1"]["b"]]
     stamp = tuple((id(t), t._version) for t in tensors)
@@ -103,7 +104,7 @@ def pack_params(params: Dict[str, Any], dtype: torch.dtype) -> torch.Tensor:
     layers, (ws, bs) = stem_weights(params, dtype)
     flat = [w.permute(1, 2, 3, 0).reshape(-1) for w, _ in layers]
     flat += [b for _, b in layers] + [ws.reshape(-1), bs]
-    packed = torch.cat(flat).contiguous()
+    packed = torch.cat(flat).cpu().contiguous()
     if packed.numel() != N_PARAMS:
         raise ValueError(f"unexpected stem parameter count {packed.numel()}")
     slot[dtype] = (stamp, packed)
@@ -119,9 +120,10 @@ def stem_fused(params: Dict[str, Any], xg: torch.Tensor) -> torch.Tensor:
     _check_input(xg)
     _build.check_cuda(xg, "xg", xg.dtype, 4)
     b, _, h, w = xg.shape
+    wdev = params["block1"][0]["w"].device
+    if wdev != xg.device:
+        raise ValueError(f"weights on {wdev}, image on {xg.device}")
     packed = pack_params(params, xg.dtype)
-    if packed.device != xg.device:
-        raise ValueError(f"weights on {packed.device}, image on {xg.device}")
     out = torch.empty((b, 24, h // 4, w // 4), dtype=xg.dtype,
                       device=xg.device)
     lib = _lib()

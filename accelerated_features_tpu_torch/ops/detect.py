@@ -4,13 +4,14 @@
 heatmap decode -> 5x5 NMS -> dense score map (nearest heatmap x bilinear
 reliability, -1 where invalid) -> one candidate per 2x2 tile -> top-k.
 `score_map` + `topk_keypoints` are the plain version of the fused detect
-kernel in `ops/cuda/detect_fused.py`; both share `select_keypoints`, so
-the two paths order their keypoints the same way.
+kernel in `ops/cuda/detect_fused.py`, and `_padded_top_k` the plain
+version of its selection kernel (`topk_exact`), which orders keypoints the
+same way.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -115,12 +116,15 @@ def _padded_top_k(flat: torch.Tensor, k: int
     return vals, idx
 
 
-def dense_topk(feat_flat: torch.Tensor, rel_flat: torch.Tensor, top_k: int
+def dense_topk(feat_flat: torch.Tensor, rel_flat: torch.Tensor, top_k: int,
+               select: Callable = _padded_top_k
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Semi-dense selector: the top-k /8 cells by reliability and their
     descriptors. feat_flat (B,h*w,C), rel_flat (B,h*w) -> idx (B,K) int64,
-    feats (B,K,C). With fewer than K cells the tail is cell 0."""
-    _, idx = _padded_top_k(rel_flat, top_k)
+    feats (B,K,C). With fewer than K cells the tail is cell 0. `select`
+    is `_padded_top_k` or a function with its contract, such as kernel A's
+    `topk_exact`."""
+    _, idx = select(rel_flat, top_k)
     feats = torch.gather(feat_flat, 1,
                          idx[..., None].expand(-1, -1, feat_flat.shape[-1]))
     return idx, feats

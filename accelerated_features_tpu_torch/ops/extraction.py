@@ -9,8 +9,9 @@ keypoint after it.
 
 Semi-dense (`extract_dense`, `extract_dualscale`,
 `detect_and_compute_dense`): the /8 cells with the highest reliability and
-their raw descriptors, NOT L2-normalized. It is plain tensor code in both
-packages.
+their raw descriptors, NOT L2-normalized. On CUDA tensors the cells are
+selected by the detect kernel's exact top-k (`topk_exact`), on CPU tensors
+by its plain version.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from ..models.backbone import xfeat_forward
 from .cuda.bicubic import sample_descriptors
-from .cuda.detect_fused import topk_keypoints_fused
+from .cuda.detect_fused import topk_exact, topk_keypoints_fused
 from .detect import dense_topk, heatmap_decode
 from .resize import preprocess_image, resize_bilinear, to_unit_float
 from .sample import l2_normalize
@@ -74,7 +75,8 @@ def extract_dense(params: Dict[str, Any], images: torch.Tensor, top_k: int,
     feats, heat = feats.float(), heat.float()
     b, h, w, c = feats.shape
     idx, descs = dense_topk(feats.reshape(b, h * w, c),
-                            heat.reshape(b, h * w), min(h * w, top_k))
+                            heat.reshape(b, h * w).contiguous(),
+                            min(h * w, top_k), topk_exact)
     xs = (idx % w).float() * 8.0 * rw
     ys = (idx // w).float() * 8.0 * rh
     return torch.stack([xs, ys], dim=-1), descs

@@ -1,24 +1,34 @@
-"""Build variants of kernel C (`csrc/mnn.cu`) or D (`csrc/attention.cu`) in
-one run on the card, hold each against its plain version and time it.
+"""Build variants of the port's kernels in one run on the card, hold each
+against its plain version and time it.
 
     python3 -m accelerated_features_tpu_torch.tools.kernel_variants SPEC
 
-SPEC is JSON: {"mnn": {name: [nvcc flags]}, "attention": {name: [flags]},
-"src": {name: "path/to/other.cu"}, "tile_q": {name: rows},
-"tile_k": {name: keys}}. A variant is the kernel's source, or the file
-"src" names for it (relative to the working directory), compiled with
+SPEC is JSON: {KERNEL: {name: [nvcc flags]}, "src": {name:
+"path/to/other.cu"}, "tile_q": {name: rows}, "tile_k": {name: keys}} with
+KERNEL one of "mnn" (C, `csrc/mnn.cu`), "attention" (D), "stem_fused" (E)
+and "detect_fused" (A). A variant is the kernel's source, or the file "src"
+names for it (relative to the working directory), compiled with
 `ops/cuda/_build.NVCC_FLAGS` plus its own flags (`-DKNOB=...` for `#ifdef`
 knobs put into a source while a design is tried; `-I csrc` is given), all
 in parallel, into a temporary directory. "tile_q" / "tile_k" tell the
 attention wrapper a variant's tile sizes. Each variant is swapped in behind
 the unchanged wrapper, run at the shapes of `chip_smoke.py`'s timing table
-(C: B = 1, K1 = K2 = 4096 seeded unit descriptors with ragged masks; D:
-B = 1, Nq = Nk = 4096, D = 96, a tenth of the keys masked), compared with
-the plain version (C: rows that differ; D: max abs error) and timed twice,
-in turns, with `chip_smoke.time_ms` (L2 evicted, device time). For each it
-prints ptxas's register and spill report. A variant that exports
-`read_dbg(long long[16])` (sums of `clock64()` per phase, kept by the
-kernel in a `__device__` array) gets those printed for one call.
+and compared with the plain version:
+  C: B = 1, K1 = K2 = 4096 seeded unit descriptors, ragged masks; rows
+     that differ;
+  D: B = 1, Nq = Nk = 4096, D = 96, a tenth of the keys masked; max abs
+     error;
+  E: B = 1, 608x800, the trained extractor's stem on a seeded texture, in
+     float32 (max abs error) and bfloat16 (max abs error against the plain
+     bfloat16 version);
+  A: B = 1, 800x608, the trained extractor's heatmap of the same texture:
+     `topk_keypoints_fused` at K = 4096 (whole stage) and `topk_exact` on
+     the XFeat* shape (12740 cells, K = 3276); values that differ.
+Each is timed twice, in turns, with `chip_smoke.time_ms` (L2 evicted,
+device time). For each variant it prints ptxas's register and spill
+report. A variant that exports `read_dbg(long long[16])` (sums of
+`clock64()` per phase, kept by the kernel in a `__device__` array) gets
+those printed for one call of each timed function.
 """
 
 from __future__ import annotations
@@ -37,16 +47,22 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from accelerated_features_tpu_torch.ops.cuda import (_build,  # noqa: E402
-                                                     attention, mnn)
+from accelerated_features_tpu_torch.ops.cuda import (  # noqa: E402
+    _build, attention, detect_fused, mnn, stem_fused)
 from accelerated_features_tpu_torch.ops.matching import \
     batch_mnn_match  # noqa: E402
+
+MODULES = {"mnn": mnn, "attention": attention, "stem_fused": stem_fused,
+           "detect_fused": detect_fused}
+ENTRIES = {"mnn": ["mnn_match"], "attention": ["attention_forward"],
+           "stem_fused": ["stem_fused"],
+           "detect_fused": ["detect_topk", "topk_exact"]}
 
 
 def build(spec: dict, out_dir: Path) -> dict:
     """{(kernel, variant): loaded library}; prints each ptxas report."""
     procs = {}
-    for kern in ("mnn", "attention"):
+    for kern in MODULES:
         for name, flags in spec.get(kern, {}).items():
             src = Path(spec.get("src", {}).get(
                 name, _build.SRC_DIR / f"{kern}.cu"))
@@ -66,19 +82,18 @@ def build(spec: dict, out_dir: Path) -> dict:
         for i, line in enumerate(lines):
             if "warning" in line.lower():
                 print(key, line[:300])
-            if "Compiling entry" in line and ("panel" in line
-                                              or "ILi96" in line):
-                print(key, lines[i + 2].strip(), "|", lines[i + 3].strip())
+            if "Compiling entry" in line and (
+                    key[0] in ("stem_fused", "detect_fused")
+                    or "panel" in line or "ILi96" in line):
+                print(key, line.split("'")[1][-40:], "|",
+                      lines[i + 2].strip(), "|", lines[i + 3].strip())
         libs[key] = ctypes.CDLL(str(out))
     return libs
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("kernel_variants: no CUDA device", file=sys.stderr)
-        return 2
-    spec = json.loads(sys.argv[1])
-    torch.backends.cuda.matmul.allow_tf32 = False
+def cases() -> dict:
+    """{kernel: [(label, call, error of one call's result)]} at the main
+    path's shapes."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     d1 = rng.normal(size=(1, 4096, 64))
@@ -95,7 +110,77 @@ def main() -> int:
                             dtype=torch.float32, device=dev) for _ in range(3))
     mk = torch.tensor(rng.uniform(size=(1, 4096)) > 0.1, device=dev)
     ref = attention.attention_reference(q, k, v, mk)
-    plain_lib = {"mnn": mnn._lib, "attention": attention._lib}
+
+    def mnn_err(out):
+        return int(((out[0] != i_p) | (out[1] != m_p)).sum())
+
+    # the trained extractor on a seeded texture: E's input, A's heatmap
+    from accelerated_features_tpu_torch import xfeat_forward
+    from accelerated_features_tpu_torch.models.backbone import input_norm
+    from accelerated_features_tpu_torch.models.params import load_params
+    from accelerated_features_tpu_torch.ops.detect import (_padded_top_k,
+                                                            heatmap_decode,
+                                                            score_map,
+                                                            topk_keypoints)
+    from accelerated_features_tpu_torch.ops.resize import to_unit_float
+    params = load_params(str(ROOT / "artifacts" / "run_md_ckpt13250.npz"))
+    params = {k_: _to(v_, dev) for k_, v_ in params.items()}
+    img = chip_smoke.texture(0, chip_smoke.H, chip_smoke.W)
+    x = to_unit_float(torch.from_numpy(img[None, ..., None].repeat(3, -1))
+                      .to(dev))
+    with torch.no_grad():
+        _, logits, heat = xfeat_forward(params, x)
+    xg = input_norm(x).contiguous()
+    x16 = xg.to(torch.bfloat16)
+    e32 = stem_fused.stem_reference(params, xg)
+    e16 = stem_fused.stem_reference(params, x16)
+    kh = heatmap_decode(logits).contiguous()
+    rl = heat[..., 0].contiguous()
+    top = topk_keypoints(score_map(kh, rl, chip_smoke.THR), chip_smoke.TOP_K)
+    cells = torch.tensor(rng.uniform(size=(1, 12740)), dtype=torch.float32,
+                         device=dev)
+    top_cells = _padded_top_k(cells, 3276)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def differ(out, want):
+        return sum(int((bits(a) != bits(b)).sum()) for a, b in zip(out, want))
+
+    return {
+        "mnn": [("K=4096", lambda: mnn.batch_mnn_match_fused(
+            d1, d2, va, vb, -1.0), mnn_err)],
+        "attention": [("4096x4096x96", lambda: attention.flash_attention(
+            q, k, v, mk), lambda o: float((o - ref).abs().max()))],
+        "stem_fused": [
+            ("float32", lambda: stem_fused.stem_fused(params, xg),
+             lambda o: float((o - e32).abs().max())),
+            ("bfloat16", lambda: stem_fused.stem_fused(params, x16),
+             lambda o: float((o.float() - e16.float()).abs().max()))],
+        "detect_fused": [
+            ("stage K=4096", lambda: detect_fused.topk_keypoints_fused(
+                kh, rl, chip_smoke.TOP_K, chip_smoke.THR),
+             lambda o: differ(o, top)),
+            ("topk_exact 12740/3276", lambda: detect_fused.topk_exact(
+                cells, 3276), lambda o: differ(o, top_cells))],
+    }
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    spec = json.loads(sys.argv[1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    by_kernel = cases()
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(spec, Path(tmp))
         times = {}
@@ -103,36 +188,35 @@ def main() -> int:
             for (kern, name), lib in libs.items():
                 lib.error_string.argtypes = [ctypes.c_int]
                 lib.error_string.restype = ctypes.c_char_p
-                module = mnn if kern == "mnn" else attention
-                arg_lib = plain_lib[kern]()  # the argtypes of the real one
-                entry = "mnn_match" if kern == "mnn" else "attention_forward"
-                getattr(lib, entry).argtypes = getattr(arg_lib, entry).argtypes
-                getattr(lib, entry).restype = ctypes.c_int
+                module = MODULES[kern]
+                real = module._lib
+                arg_lib = real()  # the argtypes of the real one
+                for entry in ENTRIES[kern]:
+                    getattr(lib, entry).argtypes = \
+                        getattr(arg_lib, entry).argtypes
+                    getattr(lib, entry).restype = ctypes.c_int
                 module._lib = lambda lib=lib: lib
-                if kern == "mnn":
-                    def call():
-                        return mnn.batch_mnn_match_fused(d1, d2, va, vb, -1.0)
-                    i_k, m_k = call()
-                    off = int(((i_k != i_p) | (m_k != m_p)).sum())
-                else:
+                if kern == "attention":
                     attention._TILE_Q = spec.get("tile_q", {}).get(name, 128)
                     attention._TILE_K = spec.get("tile_k", {}).get(name, 64)
-
-                    def call():
-                        return attention.flash_attention(q, k, v, mk)
-                    off = float((call() - ref).abs().max())
-                times.setdefault((kern, name), []).append(
-                    chip_smoke.time_ms(call))
-                if turn == 1:
-                    print(f"{kern:9s} {name:14s} ms {times[kern, name]} "
-                          f"rows that differ / max abs err {off}")
-                    if hasattr(lib, "read_dbg"):
-                        clocks = (ctypes.c_longlong * 16)()
-                        lib.read_dbg(clocks)  # clears the sums
-                        call()
-                        lib.read_dbg(clocks)
-                        print(f"   clocks by phase, one call: {list(clocks)}")
-                module._lib = plain_lib[kern]
+                with torch.no_grad():
+                    for label, call, err in by_kernel[kern]:
+                        off = err(call())
+                        t = chip_smoke.time_ms(call)
+                        times.setdefault((kern, name, label), []).append(t)
+                        if turn == 0:
+                            continue
+                        print(f"{kern:12s} {name:14s} {label:22s} ms "
+                              f"{times[kern, name, label]} error {off}")
+                        if hasattr(lib, "read_dbg"):
+                            clocks = (ctypes.c_longlong * 16)()
+                            lib.read_dbg(clocks)  # clears the sums
+                            call()
+                            torch.cuda.synchronize()
+                            lib.read_dbg(clocks)
+                            print(f"   clocks by phase, one call: "
+                                  f"{list(clocks)}")
+                module._lib = real
     return 0
 
 

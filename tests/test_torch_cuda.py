@@ -18,8 +18,15 @@ from accelerated_features_tpu_torch.models.params import load_params
 from accelerated_features_tpu_torch.ops.cuda import (attention, bicubic,
                                                      detect_fused, mnn,
                                                      stem_fused)
-from accelerated_features_tpu_torch.ops.detect import heatmap_decode
+from accelerated_features_tpu_torch.ops.detect import (_padded_top_k,
+                                                        dense_topk,
+                                                        heatmap_decode,
+                                                        score_map,
+                                                        topk_keypoints)
+from accelerated_features_tpu_torch.ops.extraction import extract_dense
 from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
+
+from select_cases import CASES as SELECT_CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -34,6 +41,8 @@ def dev():
 @pytest.mark.parametrize("b,h,w,thr", [(1, 5, 9, 0.012), (3, 8, 16, 0.012),
                                        (2, 4, 4, 0.0)])
 def test_detect_kernel_matches_plain(dev, b, h, w, thr):
+    """Every candidate: at K = N the stage returns each 2x2 tile's best
+    score and its position (in xy), equal to the plain version's."""
     rng = np.random.default_rng(h * w)
     logits = torch.tensor(rng.normal(size=(b, h, w, 65)) * 3,
                           dtype=torch.float32)
@@ -41,13 +50,94 @@ def test_detect_kernel_matches_plain(dev, b, h, w, thr):
     if thr == 0.0:  # flat regions: every tied pixel is a local max
         kheat = torch.round(kheat * 64) / 64
     rel = torch.tensor(rng.uniform(0.1, 1, (b, h, w)), dtype=torch.float32)
-    best_p, sub_p = detect_fused.plain_candidates(kheat.to(dev), rel.to(dev),
-                                                  thr)
-    n = detect_fused.detect_candidates.launches
-    best_k, sub_k = detect_fused.detect_candidates(kheat.to(dev), rel.to(dev),
-                                                   thr)
-    assert detect_fused.detect_candidates.launches == n + 1
-    assert torch.equal(best_k, best_p) and torch.equal(sub_k, sub_p)
+    kheat, rel = kheat.to(dev), rel.to(dev)
+    k = (4 * h) * (4 * w)
+    ref_xy, ref_s = topk_keypoints(score_map(kheat, rel, thr), k)
+    n = detect_fused.topk_keypoints_fused.launches
+    xy, s = detect_fused.topk_keypoints_fused(kheat, rel, k, thr)
+    assert detect_fused.topk_keypoints_fused.launches == n + 1
+    assert torch.equal(xy, ref_xy) and torch.equal(_bits(s), _bits(ref_s))
+
+
+def _bits(t):
+    return t.float().contiguous().view(torch.int32)
+
+
+def _heat(seed, b, h, w, flat=()):
+    """Decoded heatmaps (B,8h,8w) and reliabilities (B,h,w) from seeded
+    logits; images listed in `flat` are constant (every pixel ties)."""
+    rng = np.random.default_rng(seed)
+    logits = torch.tensor(rng.normal(size=(b, h, w, 65)) * 3,
+                          dtype=torch.float32)
+    for i in flat:
+        logits[i] = 0.0
+    rel = torch.tensor(rng.uniform(0.1, 1, (b, h, w)), dtype=torch.float32)
+    for i in flat:
+        rel[i] = 0.5
+    return heatmap_decode(logits), rel
+
+
+@pytest.mark.parametrize("b,h,w,k,thr,flat", [
+    (1, 76, 100, 4096, 0.05, ()),        # the main path's shape
+    (4, 76, 100, 4096, 0.012, ()),
+    (1, 76, 100, None, 0.012, ()),       # k = N
+    (1, 8, 8, 4096, 0.012, ()),          # k > N (64x64 image)
+    (1, 76, 100, 20000, 0.0, ()),        # sorted across the cluster
+    (1, 114, 152, 140000, 0.0, ()),      # sorted in global memory
+    (2, 20, 30, 1, 0.012, ()),           # k = 1
+    (3, 24, 40, 500, 0.012, (1,)),       # ragged: one flat image
+    (2, 16, 16, 300, 0.0, (0, 1)),       # every score equal
+])
+def test_fused_topk_equals_plain(dev, b, h, w, k, thr, flat):
+    """Kernel A's keypoints and scores equal `topk_keypoints(score_map())`
+    on all K slots under torch.equal: order, ties and the padded tail."""
+    k = k or (4 * h) * (4 * w)   # None: N, the number of 2x2 tiles
+    kheat, rel = _heat(h * w + k, b, h, w, flat)
+    kheat, rel = kheat.to(dev), rel.to(dev)
+    n = detect_fused.topk_keypoints_fused.launches
+    xy, s = detect_fused.topk_keypoints_fused(kheat, rel, k, thr)
+    assert detect_fused.topk_keypoints_fused.launches == n + 1
+    ref_xy, ref_s = topk_keypoints(score_map(kheat, rel, thr), k)
+    assert xy.shape == (b, k, 2) and xy.dtype == torch.int64
+    assert torch.equal(xy, ref_xy)
+    assert torch.equal(_bits(s), _bits(ref_s))
+
+
+@pytest.mark.parametrize("name", list(SELECT_CASES))
+def test_topk_exact_equals_padded_top_k(dev, name):
+    """Adversarial rows: ties, signed zeros, bin edges, keys that differ
+    only in their last 10 bits, k = 1, k = N, k > N, a global-memory sort."""
+    values, k = SELECT_CASES[name]
+    v = torch.from_numpy(values).to(dev)
+    n = detect_fused.topk_exact.launches
+    got_v, got_i = detect_fused.topk_exact(v, k)
+    assert detect_fused.topk_exact.launches == n + 1
+    ref_v, ref_i = _padded_top_k(v, k)
+    assert torch.equal(got_i, ref_i)
+    assert torch.equal(_bits(got_v), _bits(ref_v))
+
+
+def test_dense_topk_routes_to_the_kernel(dev):
+    """The semi-dense extraction selects its cells with `topk_exact`."""
+    rng = np.random.default_rng(2)
+    feats = torch.tensor(rng.normal(size=(2, 12740, 64)), dtype=torch.float32,
+                         device=dev)
+    rel = torch.tensor(rng.uniform(size=(2, 12740)), dtype=torch.float32,
+                       device=dev)
+    n = detect_fused.topk_exact.launches
+    idx, f = dense_topk(feats, rel, 3276, detect_fused.topk_exact)
+    assert detect_fused.topk_exact.launches == n + 1
+    assert torch.equal(idx, _padded_top_k(rel, 3276)[1])
+    assert torch.equal(f, torch.gather(feats, 1,
+                                       idx[..., None].expand(-1, -1, 64)))
+    ckpt = Path(__file__).resolve().parents[1] / "artifacts" \
+        / "run_md_ckpt13250.npz"
+    params = to_dev(load_params(str(ckpt)), dev)
+    images = torch.tensor(rng.uniform(size=(1, 96, 128, 3)),
+                          dtype=torch.float32, device=dev)
+    n = detect_fused.topk_exact.launches
+    extract_dense(params, images, 100)
+    assert detect_fused.topk_exact.launches == n + 1
 
 
 @pytest.mark.parametrize("b,h,w,k", [(1, 10, 13, 70), (2, 76, 100, 33)])
@@ -259,8 +349,10 @@ def to_dev(tree, dev):
     return tree.to(dev)
 
 
+# the /4 output against the 16x16 tile: 152x200, 24x16, 40x56, 8x8 (part
+# of one tile), 16x24, 8x40 (one tile row), 56x24
 STEM_SHAPES = [(1, 608, 800), (4, 608, 800), (2, 96, 64), (2, 160, 224),
-               (3, 32, 32)]
+               (3, 32, 32), (1, 64, 96), (2, 32, 160), (1, 224, 96)]
 
 
 @pytest.mark.parametrize("b,h,w", STEM_SHAPES)
@@ -323,8 +415,9 @@ def test_kernels_reject_what_they_do_not_take(dev):
                                   torch.zeros(1, 5, 96, device=dev),
                                   torch.zeros(1, 6, 96, device=dev))
     with pytest.raises(ValueError):
-        detect_fused.detect_candidates(torch.zeros(1, 7, 8, device=dev),
-                                       torch.zeros(1, 1, 1, device=dev))
+        detect_fused.topk_keypoints_fused(torch.zeros(1, 7, 8, device=dev),
+                                          torch.zeros(1, 1, 1, device=dev),
+                                          16)
     with pytest.raises(ValueError):
         bicubic.sample_descriptors(torch.zeros(1, 2, 2, 32, device=dev),
                                    torch.zeros(1, 3, 2, device=dev), (16, 16))

@@ -149,15 +149,14 @@ def test_detect_plain_matches_pallas_interpret(seed, b, h, w, k):
 def test_detect_wrapper_on_cpu_runs_plain_and_counts_nothing():
     logits, rel = _heat_case(7, 2, 6, 10)
     kheat = detect.heatmap_decode(t(logits))
-    before = cuda_detect.detect_candidates.launches
-    best, sub = cuda_detect.detect_candidates(kheat, t(rel), 0.02)
-    rb, rs = detect.tile_candidates(detect.score_map(kheat, t(rel), 0.02))
-    assert torch.equal(best, rb) and torch.equal(sub, rs)
+    before = cuda_detect.topk_keypoints_fused.launches
+    best, sub = detect.tile_candidates(detect.score_map(kheat, t(rel), 0.02))
     assert sub.dtype == torch.uint8 and tuple(best.shape) == (2, 24, 40)
     k1, s1 = cuda_detect.topk_keypoints_fused(kheat, t(rel), 50, 0.02)
     k2, s2 = detect.select_keypoints(best, sub, 50)
     assert torch.equal(k1, k2) and torch.equal(s1, s2)
-    assert cuda_detect.detect_candidates.launches == before
+    assert k1.shape == (2, 50, 2) and k1.dtype == torch.int64
+    assert cuda_detect.topk_keypoints_fused.launches == before
 
 
 def test_topk_ties_follow_index_order():
