@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of `accelerated_features_tpu`: sparse XFeat, the
 semi-dense XFeat* pipeline, the LighterGlue matcher, and the pose path
-(`geometry`: batched essential-matrix RANSAC; `eval`: the relative-pose
-benchmark harness).
+(`geometry`: the native posekit backend and a batched essential-matrix
+RANSAC on the device; `eval`: the relative-pose benchmark harness).
 
 The JAX package stays the reference; this package computes the same
 functions with PyTorch and hand-written CUDA kernels for Hopper

@@ -27,6 +27,7 @@ from .ops.matching import batch_mnn_match
 from .ops.refine import refine_matches
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
+Weights = Optional[Union[str, Mapping[str, Any]]]
 
 # the repository's trained extractor
 DEFAULT_WEIGHTS = str(Path(__file__).resolve().parents[1] / "artifacts"
@@ -51,7 +52,9 @@ class XFeat:
     `refine_matches`, `set_lighterglue`, `match_lighterglue`.
 
     `weights`: an extractor `.npz` path (the JAX package's format; a full
-    train state works too) or a JAX-layout numpy parameter tree.
+    train state works too), a JAX-layout numpy parameter tree, or None for
+    a random extractor (`models.params.init_xfeat_params`, seed 0; the JAX
+    package's shapes and bounds, drawn by torch, so other values).
     `compute_dtype`: "float32" or "bfloat16", the backbone's dtype;
     selection, descriptors and matching stay float32.
     `fused_stem`: run the backbone's stem as the fused stem kernel (its
@@ -62,7 +65,7 @@ class XFeat:
     """
 
     def __init__(self,
-                 weights: Union[str, Mapping[str, Any]] = DEFAULT_WEIGHTS,
+                 weights: Weights = DEFAULT_WEIGHTS,
                  top_k: int = 4096, detection_threshold: float = 0.05,
                  device: Optional[Union[str, torch.device]] = None,
                  compute_dtype: str = "float32", fused_stem: bool = False,
@@ -84,7 +87,7 @@ class XFeat:
         self._lighterglue: Optional[LighterGlue] = None
         self.set_params(weights)
 
-    def set_params(self, weights: Union[str, Mapping[str, Any]]) -> None:
+    def set_params(self, weights: Weights) -> None:
         """Swap the extractor weights in place (same formats as __init__)."""
         self.model = XFeatModel(load_params(weights)).to(self.device).eval()
 

@@ -6,9 +6,11 @@ Protocol of the original XFeat evaluation:
     /32-divisible resized sizes and keypoint scales);
   * a matcher produces pixel correspondences; keypoints are rescaled from
     the resized eval resolution back to the intrinsics' frame;
-  * pose from an essential-matrix RANSAC, max_epipolar_error 2.5 px; here
-    the batched-hypothesis 8-point MSAC of `geometry/ransac.py`
-    (`pose_backend="gpu"`);
+  * pose from an essential-matrix RANSAC, max_epipolar_error 2.5 px,
+    success_prob 0.99999: by default the native 5-point LO-RANSAC
+    (`pose_backend="posekit"`, `geometry/pose.py`, as in the JAX
+    package), or the batched-hypothesis 8-point MSAC of
+    `geometry/ransac.py` on the device (`pose_backend="gpu"`);
   * metric: AUC@{5,10,20} of max(angular R err, angular t err) + mAcc.
 
 Run on the committed rendered holdout (150 pairs, 800x608):
@@ -17,7 +19,7 @@ Run on the committed rendered holdout (150 pairs, 800x608):
         --data_root artifacts/rendered_pose_holdout \
         --json artifacts/rendered_pose_holdout/rendered_pose_pairs.json \
         --matcher xfeat --weights artifacts/run_md_ckpt13250.npz \
-        --top_k 2048 --limit 100 --pose_backend gpu [--device cpu]
+        --top_k 2048 --limit 100 [--pose_backend gpu] [--device cpu]
 
 Reading images needs `cv2`, imported only by the functions that read.
 """
@@ -68,11 +70,12 @@ def _resize_pair_images(im0, im1, pair, cv2):
 
 def compute_pose_error(pair: dict, mkpts0: np.ndarray, mkpts1: np.ndarray,
                        scale0=(1.0, 1.0), scale1=(1.0, 1.0),
-                       ransac_thr: float = 2.5, pose_backend: str = "gpu",
+                       ransac_thr: float = 2.5, pose_backend: str = "posekit",
                        device: Device = None) -> Dict[str, float]:
     """Rescale matches to the intrinsics' resolution, estimate the pose,
-    return the angular errors. `pose_backend`: "gpu", the batched 8-point
-    MSAC on `device` (None: the GPU)."""
+    return the angular errors. `pose_backend`: "posekit", the native
+    5-point LO-RANSAC on the host, or "gpu", the batched 8-point MSAC on
+    `device` (None: the GPU)."""
     K0 = np.asarray(pair["K0"], np.float64)
     K1 = np.asarray(pair["K1"], np.float64)
     T_0to1 = np.asarray(pair["T_0to1"], np.float64)
@@ -105,7 +108,7 @@ def _summary(errors: List[Dict[str, float]]) -> Dict[str, float]:
 def run_benchmark(matcher_fn: MatcherFn, data_root: str,
                   json_path: str = DEFAULT_JSON, ransac_thr: float = 2.5,
                   limit: Optional[int] = None, progress: bool = True,
-                  pose_backend: str = "gpu", device: Device = None
+                  pose_backend: str = "posekit", device: Device = None
                   ) -> Dict[str, float]:
     """Image-based benchmark, one pair at a time (needs the images under
     `data_root` and `cv2`)."""
@@ -137,7 +140,7 @@ def run_benchmark_batched(data_root: str, json_path: str = DEFAULT_JSON,
                           top_k: int = 4096, weights: Optional[str] = None,
                           batch_size: int = 8, ransac_thr: float = 2.5,
                           limit: Optional[int] = None, progress: bool = True,
-                          pose_backend: str = "gpu",
+                          pose_backend: str = "posekit",
                           detection_threshold: float = 0.05,
                           compute_dtype: Optional[torch.dtype] = None,
                           fused_stem: bool = False, device: Device = None
@@ -188,7 +191,7 @@ def run_benchmark_batched(data_root: str, json_path: str = DEFAULT_JSON,
 
 def run_benchmark_precomputed(matches: List[Tuple[np.ndarray, np.ndarray]],
                               pairs: List[dict], ransac_thr: float = 2.5,
-                              pose_backend: str = "gpu",
+                              pose_backend: str = "posekit",
                               device: Device = None) -> Dict[str, float]:
     """Benchmark from precomputed correspondences (tests, cached runs)."""
     errors = [compute_pose_error(pair, mk0, mk1, ransac_thr=ransac_thr,
@@ -243,9 +246,10 @@ def main():
     ap.add_argument("--top_k", type=int, default=4096)
     ap.add_argument("--ransac_thr", type=float, default=2.5)
     ap.add_argument("--limit", type=int, default=None)
-    ap.add_argument("--pose_backend", type=str, default="gpu",
-                    choices=["gpu"],
-                    help="gpu: batched 8-pt MSAC on the device")
+    ap.add_argument("--pose_backend", type=str, default="posekit",
+                    choices=["posekit", "gpu"],
+                    help="posekit: native 5-pt LO-RANSAC on the host; gpu: "
+                         "batched 8-pt MSAC on the device")
     ap.add_argument("--batched", action="store_true",
                     help="size-bucketed batched extraction + batched MNN "
                          "(sparse xfeat only; identical protocol)")

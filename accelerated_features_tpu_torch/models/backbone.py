@@ -130,7 +130,8 @@ def fine_matcher_forward(params: Dict[str, Any],
                          x: torch.Tensor) -> torch.Tensor:
     """Fine-matcher MLP 128 -> 512 x4 -> 64 on (..., 128) concatenated
     descriptor pairs (inference: BatchNorm folded into the four hidden
-    layers). Full float32 matmuls."""
+    layers). Full float32 on the card inside `full_fp32_matmuls`, which
+    `ops.refine.refine_matches` enters."""
     mlp = params["fine_matcher"]
     if any("mean" in layer for layer in mlp):
         raise ValueError("inference needs BatchNorm folded into the fine "

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda.attention import NEG, flash_attention
+from ..ops.precision import full_fp32_matmuls
 from .params import load_lighterglue_params
 
 DEFAULT_CONF = {
@@ -106,8 +107,7 @@ def _tree_to(tree: Any, device: torch.device) -> Any:
 # ---------------------------------------------------------------------------
 
 def _apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    # full float32 on the card unless the caller turned
-    # torch.backends.cuda.matmul.allow_tf32 on
+    # full float32 on the card: lighterglue_forward enters full_fp32_matmuls
     return F.linear(x, p["w"], p["b"])
 
 
@@ -224,6 +224,7 @@ def filter_matches_from_scores(scores: torch.Tensor, m: int, n: int
             torch.where(mutual, torch.exp(best), 0.0))
 
 
+@full_fp32_matmuls()
 def lighterglue_forward(params: Dict[str, Any], kpts0: torch.Tensor,
                         kpts1: torch.Tensor, descs0: torch.Tensor,
                         descs1: torch.Tensor, size0: torch.Tensor,

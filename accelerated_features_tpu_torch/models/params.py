@@ -13,11 +13,16 @@ tree keeps the JAX package's nesting:
 BatchNorm is folded on the numpy tree exactly as the JAX package folds it,
 then `params_from_jax` turns the tree into torch tensors in torch's own
 layouts: conv weights HWIO -> OIHW, linear weights (in, out) -> (out, in).
+
+`init_xfeat_params` draws a fresh tree in that layout with the JAX
+package's shapes and U(-b, b) bounds (torch's default kaiming-uniform
+scheme), from a `torch.Generator`: the values differ from `jax.random`'s.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+import math
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,6 +31,77 @@ BN_EPS = 1e-5  # torch BatchNorm default eps
 
 BLOCK_NAMES = ["block1", "block2", "block3", "block4", "block5",
                "block_fusion", "heatmap_head", "keypoint_head"]
+
+# kernel size and (in, out) channels of each BatchNorm conv, and the final
+# plain conv with bias of three blocks (the JAX package's
+# `models/backbone.py` plans)
+BLOCK_CONVS: Dict[str, List[Tuple[int, int, int]]] = {
+    "block1": [(3, 1, 4), (3, 4, 8), (3, 8, 8), (3, 8, 24)],
+    "block2": [(3, 24, 24), (3, 24, 24)],
+    "block3": [(3, 24, 64), (3, 64, 64), (1, 64, 64)],
+    "block4": [(3, 64, 64), (3, 64, 64), (3, 64, 64)],
+    "block5": [(3, 64, 128), (3, 128, 128), (3, 128, 128), (1, 128, 64)],
+    "block_fusion": [(3, 64, 64), (3, 64, 64)],
+    "heatmap_head": [(1, 64, 64), (1, 64, 64)],
+    "keypoint_head": [(1, 64, 64), (1, 64, 64), (1, 64, 64)],
+}
+FINAL_CONVS = {"block_fusion": (64, 64), "heatmap_head": (64, 1),
+               "keypoint_head": (64, 65)}
+FINE_MATCHER_DIMS = [(128, 512), (512, 512), (512, 512), (512, 512),
+                     (512, 64)]
+
+
+def _uniform(gen: torch.Generator, shape, fan_in: int) -> np.ndarray:
+    """U(-b, b) with b = 1/sqrt(fan_in): torch's default init of conv and
+    linear weights (kaiming_uniform with a = sqrt(5)) and of biases."""
+    bound = 1.0 / math.sqrt(fan_in)
+    u = torch.rand(shape, generator=gen, dtype=torch.float32)
+    return ((u * 2.0 - 1.0) * bound).numpy()
+
+
+def init_xfeat_params(generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, Any]:
+    """A fresh extractor tree in the JAX layout (numpy float32, conv HWIO,
+    linear (in, out), BatchNorm running stats 0 and 1), drawn from
+    `generator` (seed 0 when none is given)."""
+    gen = generator if generator is not None \
+        else torch.Generator().manual_seed(0)
+
+    def conv(k, cin, cout):
+        return _uniform(gen, (k, k, cin, cout), cin * k * k)
+
+    def stats(c):
+        return {"mean": np.zeros((c,), np.float32),
+                "var": np.ones((c,), np.float32)}
+
+    params: Dict[str, Any] = {"skip1": {"w": conv(1, 1, 24),
+                                        "b": _uniform(gen, (24,), 1)}}
+    for name in BLOCK_NAMES:
+        layers = [{"w": conv(k, cin, cout), **stats(cout)}
+                  for k, cin, cout in BLOCK_CONVS[name]]
+        if name in FINAL_CONVS:
+            cin, cout = FINAL_CONVS[name]
+            layers.append({"w": conv(1, cin, cout),
+                           "b": _uniform(gen, (cout,), cin)})
+        params[name] = layers
+    mlp = []
+    for i, (din, dout) in enumerate(FINE_MATCHER_DIMS):
+        layer = {"w": _uniform(gen, (din, dout), din),
+                 "b": _uniform(gen, (dout,), din)}
+        if i < len(FINE_MATCHER_DIMS) - 1:
+            layer.update(stats(dout))
+        mlp.append(layer)
+    params["fine_matcher"] = mlp
+    return params
+
+
+def count_params(params: Any) -> int:
+    """Number of scalars in a parameter tree (numpy or torch leaves)."""
+    if isinstance(params, Mapping):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(np.prod(params.shape))
 
 
 def _unflatten(flat: Mapping[str, Any]):
@@ -111,11 +187,17 @@ def params_from_jax(tree: Any) -> Any:
     raise TypeError(f"unexpected parameter node {type(tree).__name__}")
 
 
-def load_params(weights: Union[str, Mapping[str, Any]],
+def load_params(weights: Union[str, Mapping[str, Any], None],
                 fold_bn: bool = True) -> Dict[str, Any]:
-    """`.npz` path or JAX-layout numpy tree -> the port's tensor tree
-    (BatchNorm folded unless `fold_bn=False`)."""
-    tree = load_npz_tree(weights) if isinstance(weights, str) else weights
+    """`.npz` path, JAX-layout numpy tree, or None for a random tree from
+    `init_xfeat_params` (seed 0) -> the port's tensor tree (BatchNorm
+    folded unless `fold_bn=False`)."""
+    if weights is None:
+        tree = init_xfeat_params()
+    elif isinstance(weights, str):
+        tree = load_npz_tree(weights)
+    else:
+        tree = weights
     if fold_bn:
         tree = fold_batchnorm(tree)
     return params_from_jax(tree)

@@ -10,7 +10,8 @@ The compiler's report (`-Xptxas -v`: registers, shared memory and spills
 of every kernel) is kept beside each library as `lib<name>.log`.
 
 Each C entry launches on the stream it is given and returns
-`cudaGetLastError()`; `launch` raises when that is not 0.
+`cudaGetLastError()`; `launch` raises when that is not 0. The kernels have
+no backward: every wrapper calls `refuse_grad` before it launches.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -114,6 +115,19 @@ def launch(lib: ctypes.CDLL, fn_name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
                            f"({lib.error_string(rc).decode()})")
+
+
+def refuse_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would record through the kernel: grad mode is
+    on and an input requires grad. The kernels have no backward, and their
+    outputs would be cut from the graph without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: an input requires grad while grad "
+            f"mode is on. Run it under torch.no_grad() or "
+            f"torch.inference_mode(); the kernels' backward comes with "
+            f"training.")
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -77,6 +77,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(mask_k.shape) != (b, nk):
             raise ValueError(f"mask_k must be ({b}, {nk}), got "
                              f"{tuple(mask_k.shape)}")
+    _build.refuse_grad("kernel D (attention)", q, k, v)
     dev = q.device
     # A block takes the whole SM (eight warps, up to 205 KB of shared
     # memory), so the keys are split only while the grid stays within one

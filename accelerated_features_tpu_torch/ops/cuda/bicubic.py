@@ -1,9 +1,13 @@
-"""Kernel B: bicubic descriptor sampler with L2 norm (`csrc/bicubic.cu`).
+"""Kernel B: descriptor sampling with both L2 normalizations
+(`csrc/bicubic.cu`).
 
 Counterpart of the TPU kernels `sample_bicubic_fused` and
-`sample_bicubic_w2` in `accelerated_features_tpu/ops/pallas/bicubic.py`.
-`sample_descriptors` launches the kernel on CUDA tensors; on CPU tensors
-it runs the plain version, `l2_normalize(sample_bicubic(...))`.
+`sample_bicubic_w2` in `accelerated_features_tpu/ops/pallas/bicubic.py`,
+which sample an already normalized map. Kernel B takes the backbone's raw
+map and normalizes each tap it reads, so the sparse path runs no separate
+per-pixel normalization. `sample_descriptors` launches the kernel on CUDA
+tensors; on CPU tensors it runs the plain version,
+`l2_normalize(sample_bicubic(l2_normalize(maps), ...))`.
 `sample_descriptors.launches` counts kernel launches.
 """
 
@@ -22,13 +26,14 @@ from . import _build
 def plain_descriptors(maps: torch.Tensor, pos: torch.Tensor,
                       ref_hw: Tuple[int, int]) -> torch.Tensor:
     """The kernel's function in plain torch."""
-    return l2_normalize(sample_bicubic(maps, pos, ref_hw))
+    return l2_normalize(sample_bicubic(l2_normalize(maps), pos, ref_hw))
 
 
 def sample_descriptors(maps: torch.Tensor, pos: torch.Tensor,
                        ref_hw: Tuple[int, int]) -> torch.Tensor:
-    """(B,h,w,64) f32 map, (B,K,2) f32 xy positions in the (H,W) = `ref_hw`
-    frame -> (B,K,64) bicubic samples, L2-normalized."""
+    """Raw (B,h,w,64) f32 map, (B,K,2) f32 xy positions in the (H,W) =
+    `ref_hw` frame -> (B,K,64) descriptors: the map L2-normalized per
+    pixel, sampled bicubically, L2-normalized per keypoint."""
     if maps.device.type == "cpu":
         return plain_descriptors(maps, pos, ref_hw)
     _build.check_cuda(maps, "maps", torch.float32, 4)
@@ -38,6 +43,9 @@ def sample_descriptors(maps: torch.Tensor, pos: torch.Tensor,
     if c != 64 or pos.shape[0] != b or pos.shape[2] != 2:
         raise ValueError(f"need maps (B,h,w,64) and pos (B,K,2), got "
                          f"{tuple(maps.shape)} and {tuple(pos.shape)}")
+    if maps.data_ptr() % 16 or pos.data_ptr() % 8:
+        raise ValueError("maps must be 16-byte and pos 8-byte aligned")
+    _build.refuse_grad("kernel B (bicubic)", maps, pos)
     H, W = ref_hw
     out = torch.empty((b, k, c), dtype=torch.float32, device=maps.device)
     lib = _lib()

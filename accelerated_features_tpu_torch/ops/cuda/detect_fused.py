@@ -75,6 +75,7 @@ def topk_keypoints_fused(kheat: torch.Tensor, reliability: torch.Tensor,
     if kheat.device.type == "cpu":
         return topk_keypoints(score_map(kheat, reliability, threshold), top_k)
     _check_detect(kheat, reliability)
+    _build.refuse_grad("kernel A (detect_fused)", kheat, reliability)
     if top_k < 1:
         raise ValueError(f"top_k must be positive, got {top_k}")
     b, H, W = kheat.shape
@@ -112,6 +113,7 @@ def topk_exact(values: torch.Tensor, k: int
     if values.device.type == "cpu":
         return _padded_top_k(values, k)
     _build.check_cuda(values, "values", torch.float32, 2)
+    _build.refuse_grad("kernel A (topk_exact)", values)
     b, n = values.shape
     if k < 1 or n < 1:
         raise ValueError(f"need k >= 1 and N >= 1, got k={k}, N={n}")

@@ -52,6 +52,7 @@ def batch_mnn_match_fused(d1: torch.Tensor, d2: torch.Tensor,
             if tuple(v.shape) != (b, k):
                 raise ValueError(f"{name} must be ({b}, {k}), got "
                                  f"{tuple(v.shape)}")
+    _build.refuse_grad("kernel C (mnn)", d1, d2)
     dev = d1.device
     keys = torch.empty(b * (k1 + k2), dtype=torch.int64, device=dev)
     idx1 = torch.empty((b, k1), dtype=torch.int64, device=dev)

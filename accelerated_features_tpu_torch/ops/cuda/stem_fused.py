@@ -123,6 +123,9 @@ def stem_fused(params: Dict[str, Any], xg: torch.Tensor) -> torch.Tensor:
     wdev = params["block1"][0]["w"].device
     if wdev != xg.device:
         raise ValueError(f"weights on {wdev}, image on {xg.device}")
+    layers = [*params["block1"], params["skip1"]]
+    _build.refuse_grad("kernel E (stem_fused)", xg,
+                       *(p[k] for p in layers for k in ("w", "b") if k in p))
     packed = pack_params(params, xg.dtype)
     out = torch.empty((b, 24, h // 4, w // 4), dtype=xg.dtype,
                       device=xg.device)

@@ -5,7 +5,8 @@ Sparse (`detect_and_compute`): on CUDA tensors the keypoint selection runs
 the fused detect kernel and the descriptor sampling runs the bicubic
 kernel; on CPU tensors both run their plain torch versions. The sparse
 path L2-normalizes descriptors twice, per pixel before sampling and per
-keypoint after it.
+keypoint after it; both normalizations belong to the sampling step
+(`sample_descriptors` takes the raw map).
 
 Semi-dense (`extract_dense`, `extract_dualscale`,
 `detect_and_compute_dense`): the /8 cells with the highest reliability and
@@ -50,12 +51,11 @@ def detect_and_compute(params: Dict[str, Any], images: torch.Tensor,
 
     feats, logits, heat = xfeat_forward(params, x, compute_dtype=compute_dtype,
                                         fused_stem=fused_stem)
-    feats = l2_normalize(feats.float())
     kheat = heatmap_decode(logits.float())                       # (B, H, W)
     kpts_i, scores = topk_keypoints_fused(
         kheat, heat[..., 0].float().contiguous(), top_k, detection_threshold)
     kpts_f = kpts_i.float()
-    descs = sample_descriptors(feats, kpts_f, (H, W))
+    descs = sample_descriptors(feats.float(), kpts_f, (H, W))
     kpts = kpts_f * torch.tensor([rw, rh], dtype=torch.float32,
                                  device=kpts_f.device)
     return {"keypoints": kpts, "scores": scores, "descriptors": descs,

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .precision import full_fp32_matmuls
+
 NEG = -1e9
 
 
@@ -21,12 +23,12 @@ def similarity(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """(…,K1,C) x (…,K2,C) -> (…,K1,K2) dot products in full float32.
 
     bf16-grade similarities flip mutual-argmax decisions when similarities
-    cluster tightly, so this must not run in TF32 on the card: a float32
-    matmul there is full float32 unless the caller turned
-    `torch.backends.cuda.matmul.allow_tf32` on."""
+    cluster tightly, so this must not run in TF32 on the card: callers
+    enter `full_fp32_matmuls`, as `batch_mnn_match` does."""
     return torch.matmul(d1.float(), d2.float().transpose(-1, -2))
 
 
+@full_fp32_matmuls()
 def batch_mnn_match(d1: torch.Tensor, d2: torch.Tensor,
                     valid1: Optional[torch.Tensor] = None,
                     valid2: Optional[torch.Tensor] = None,

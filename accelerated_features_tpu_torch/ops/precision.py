@@ -1,5 +1,9 @@
-"""Numeric precision: the switches shared by the backbone and the stem, and
-the CPU emulation of the 3xTF32 tensor-core products of kernels C and D."""
+"""Numeric precision: the switches that keep the card's convolutions and
+matrix products in full float32, and the CPU emulation of the 3xTF32
+tensor-core products of kernels C and D.
+
+Both switches set a process-global torch flag for the duration of a call
+and restore the caller's value after it."""
 
 from __future__ import annotations
 
@@ -9,6 +13,17 @@ import torch
 
 
 @contextlib.contextmanager
+def _flag_off(backend, flag: str):
+    """Clear the boolean `backend.flag` for the call and restore the
+    caller's value after it."""
+    prev = getattr(backend, flag)
+    setattr(backend, flag, False)
+    try:
+        yield
+    finally:
+        setattr(backend, flag, prev)
+
+
 def full_fp32_convs():
     """Run float32 convolutions in full float32 on the card.
 
@@ -17,12 +32,20 @@ def full_fp32_convs():
     digits; the JAX reference convolves at Precision.HIGHEST, and TF32-grade
     heatmaps move NMS and top-k decisions. The flag is set for the forward
     only and restored after, so the caller's global setting is untouched."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
+    return _flag_off(torch.backends.cudnn, "allow_tf32")
+
+
+def full_fp32_matmuls():
+    """Run float32 matrix products in full float32 on the card.
+
+    cuBLAS runs float32 products in TF32 when the caller turned
+    `torch.backends.cuda.matmul.allow_tf32` on; the JAX reference multiplies
+    at Precision.HIGHEST, and TF32-grade similarities flip mutual-argmax
+    and assignment decisions. Entered once per entry point (the plain
+    matcher, the LighterGlue forward, the refinement), not per product;
+    usable as a decorator. `torch.set_float32_matmul_precision` is the same
+    global switch by another name."""
+    return _flag_off(torch.backends.cuda.matmul, "allow_tf32")
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..models.backbone import fine_matcher_forward
+from .precision import full_fp32_matmuls
 
 
 def subpix_softmax2d(logits: torch.Tensor, temp: float = 3.0) -> torch.Tensor:
@@ -28,6 +29,7 @@ def subpix_softmax2d(logits: torch.Tensor, temp: float = 3.0) -> torch.Tensor:
     return torch.stack([off_x, off_y], dim=-1)
 
 
+@full_fp32_matmuls()
 def refine_matches(params: Dict[str, Any], kpts0: torch.Tensor,
                    kpts1: torch.Tensor, descs0: torch.Tensor,
                    descs1: torch.Tensor, scales0: torch.Tensor,

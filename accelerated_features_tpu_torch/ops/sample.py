@@ -6,8 +6,8 @@ semantics (counterpart of the JAX package's `ops/sample.py`):
   * out-of-bounds taps contribute zero (padding_mode='zeros');
   * 'nearest' rounds half to even; 'bicubic' uses A = -0.75.
 
-`sample_bicubic` followed by `l2_normalize` is the plain
-version of the bicubic kernel in `ops/cuda/bicubic.py`.
+`l2_normalize`, `sample_bicubic`, then `l2_normalize` again is the plain
+version of the descriptor kernel in `ops/cuda/bicubic.py`.
 """
 
 from __future__ import annotations

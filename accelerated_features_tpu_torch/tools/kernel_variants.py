@@ -5,9 +5,10 @@ against its plain version and time it.
 
 SPEC is JSON: {KERNEL: {name: [nvcc flags]}, "src": {name:
 "path/to/other.cu"}, "tile_q": {name: rows}, "tile_k": {name: keys}} with
-KERNEL one of "mnn" (C, `csrc/mnn.cu`), "attention" (D), "stem_fused" (E)
-and "detect_fused" (A). A variant is the kernel's source, or the file "src"
-names for it (relative to the working directory), compiled with
+KERNEL one of "mnn" (C, `csrc/mnn.cu`), "attention" (D), "stem_fused" (E),
+"detect_fused" (A) and "bicubic" (B). A variant is the kernel's source,
+or the file "src" names for it (relative to the working directory),
+compiled with
 `ops/cuda/_build.NVCC_FLAGS` plus its own flags (`-DKNOB=...` for `#ifdef`
 knobs put into a source while a design is tried; `-I csrc` is given), all
 in parallel, into a temporary directory. "tile_q" / "tile_k" tell the
@@ -23,7 +24,9 @@ and compared with the plain version:
      bfloat16 version);
   A: B = 1, 800x608, the trained extractor's heatmap of the same texture:
      `topk_keypoints_fused` at K = 4096 (whole stage) and `topk_exact` on
-     the XFeat* shape (12740 cells, K = 3276); values that differ.
+     the XFeat* shape (12740 cells, K = 3276); values that differ;
+  B: B = 1, the trained extractor's raw 76x100x64 map of the same texture
+     at its K = 4096 keypoints; max abs error.
 Each is timed twice, in turns, with `chip_smoke.time_ms` (L2 evicted,
 device time). For each variant it prints ptxas's register and spill
 report. A variant that exports `read_dbg(long long[16])` (sums of
@@ -48,15 +51,16 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from accelerated_features_tpu_torch.ops.cuda import (  # noqa: E402
-    _build, attention, detect_fused, mnn, stem_fused)
+    _build, attention, bicubic, detect_fused, mnn, stem_fused)
 from accelerated_features_tpu_torch.ops.matching import \
     batch_mnn_match  # noqa: E402
 
 MODULES = {"mnn": mnn, "attention": attention, "stem_fused": stem_fused,
-           "detect_fused": detect_fused}
+           "detect_fused": detect_fused, "bicubic": bicubic}
 ENTRIES = {"mnn": ["mnn_match"], "attention": ["attention_forward"],
            "stem_fused": ["stem_fused"],
-           "detect_fused": ["detect_topk", "topk_exact"]}
+           "detect_fused": ["detect_topk", "topk_exact"],
+           "bicubic": ["bicubic_sample_normalize"]}
 
 
 def build(spec: dict, out_dir: Path) -> dict:
@@ -83,7 +87,7 @@ def build(spec: dict, out_dir: Path) -> dict:
             if "warning" in line.lower():
                 print(key, line[:300])
             if "Compiling entry" in line and (
-                    key[0] in ("stem_fused", "detect_fused")
+                    key[0] in ("stem_fused", "detect_fused", "bicubic")
                     or "panel" in line or "ILi96" in line):
                 print(key, line.split("'")[1][-40:], "|",
                       lines[i + 2].strip(), "|", lines[i + 3].strip())
@@ -129,7 +133,7 @@ def cases() -> dict:
     x = to_unit_float(torch.from_numpy(img[None, ..., None].repeat(3, -1))
                       .to(dev))
     with torch.no_grad():
-        _, logits, heat = xfeat_forward(params, x)
+        feats, logits, heat = xfeat_forward(params, x)
     xg = input_norm(x).contiguous()
     x16 = xg.to(torch.bfloat16)
     e32 = stem_fused.stem_reference(params, xg)
@@ -140,6 +144,10 @@ def cases() -> dict:
     cells = torch.tensor(rng.uniform(size=(1, 12740)), dtype=torch.float32,
                          device=dev)
     top_cells = _padded_top_k(cells, 3276)
+    maps = feats.contiguous()
+    kpts = top[0].float().contiguous()
+    hw = (chip_smoke.H, chip_smoke.W)
+    descs = bicubic.plain_descriptors(maps, kpts, hw)
 
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -163,6 +171,8 @@ def cases() -> dict:
              lambda o: differ(o, top)),
             ("topk_exact 12740/3276", lambda: detect_fused.topk_exact(
                 cells, 3276), lambda o: differ(o, top_cells))],
+        "bicubic": [("K=4096", lambda: bicubic.sample_descriptors(
+            maps, kpts, hw), lambda o: float((o - descs).abs().max()))],
     }
 
 

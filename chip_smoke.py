@@ -14,7 +14,9 @@ Run from the root of a checkout. In order, it
      sort goes through device memory, equal under torch.equal; MNN at
      K1 != K2 off the row panel; attention at every head width with a
      ragged last key tile, a masked tail and a key range that ends inside a
-     split);
+     split; descriptor sampling of a raw map with zero pixels and taps off
+     the map), and shows that every kernel's wrapper refuses an input that
+     requires grad while grad mode is on;
   3. drives the three matchers end to end with the repository's trained
      extractor `artifacts/run_md_ckpt13250.npz` and trained matcher
      `artifacts/lighterglue_ft_ckpt7791.npz`: `detectAndCompute` on a batch
@@ -28,7 +30,8 @@ Run from the root of a checkout. In order, it
      been launched), and the pose path: the batched RANSAC on 8 seeded
      two-view scenes of 2048 correspondences, against the truth, against
      the port's CPU path from the same samples, and through
-     `run_benchmark_precomputed`;
+     `run_benchmark_precomputed`; then the native `posekit` backend (built
+     by g++ from `native/posekit.cpp`) on the same scenes, beside it;
   5. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function, and
      profiles one call of each matcher.
@@ -250,7 +253,8 @@ def pose_phase() -> None:
     """The pose path on the card. The smoke's image pair is a pure shift,
     degenerate for an essential matrix, so pose runs on seeded
     correspondences: 8 pairs of 2048, 30% outliers, 0.5 px noise, 512
-    hypotheses, in one `ransac_essential_batch` call."""
+    hypotheses, in one `ransac_essential_batch` call; then the native
+    `posekit` backend on the host, pair by pair, on the same scenes."""
     import numpy as np
     import torch
 
@@ -258,8 +262,8 @@ def pose_phase() -> None:
         run_benchmark_precomputed
     from accelerated_features_tpu_torch.eval.metrics import \
         relative_pose_error
-    from accelerated_features_tpu_torch.geometry import \
-        ransac_essential_batch
+    from accelerated_features_tpu_torch.geometry import (
+        get_pose_estimator, pose, ransac_essential_batch)
     n_pairs, n_pts, n_hyp = 8, 2048, 512
     scenes = [two_view_scene(100 + s, n_pts) for s in range(n_pairs)]
     p0 = torch.from_numpy(np.stack([s[0] for s in scenes]))
@@ -274,15 +278,18 @@ def pose_phase() -> None:
             generator=torch.Generator(device="cpu").manual_seed(seed))
         return [f.cpu() for f in res]
 
+    def pair_errors(R, t):
+        """max(R_err, t_err) in degrees of each pair against the truth."""
+        return [max(relative_pose_error(T, np.asarray(R[i], np.float64),
+                                        np.asarray(t[i], np.float64))[k]
+                    for k in ("R_err", "t_err"))
+                for i, (_, _, _, T, _) in enumerate(scenes)]
+
     def against_truth(R, t, inl):
-        worst, recall = 0.0, 1.0
-        for i, (_, _, _, T, good) in enumerate(scenes):
-            e = relative_pose_error(T, R[i].double().numpy(),
-                                    t[i].double().numpy())
-            worst = max(worst, e["R_err"], e["t_err"])
-            recall = min(recall, float((inl[i].numpy() & good).sum()
-                                       / good.sum()))
-        return worst, recall
+        recall = min(float((inl[i].numpy() & s[4]).sum() / s[4].sum())
+                     for i, s in enumerate(scenes))
+        return max(pair_errors(R.double().numpy(), t.double().numpy())), \
+            recall
 
     def between(a, b):
         """Largest angle in degrees between the rotations and between the
@@ -305,6 +312,7 @@ def pose_phase() -> None:
     # depends on the draw. Three draws are run on the card and on the CPU
     # from the same samples. Every draw is held to loose bounds; draw 9 is
     # held to the tight ones.
+    gpu_errs = None
     for seed in (7, 8, 9):
         on_card, on_cpu = run("cuda", seed), run("cpu", seed)
         R, t, E, inl, n_inl = on_card
@@ -321,6 +329,8 @@ def pose_phase() -> None:
               f"vs cpu from the same samples: at most {vs_cpu:.4f} deg "
               f"apart, masks equal on at least {mask_eq:.4f} of rows")
         tight = seed == 9
+        if tight:
+            gpu_errs = pair_errors(R.double().numpy(), t.double().numpy())
         check(worst < (2.0 if tight else 5.0),
               f"a pair's pose error is {worst:.3f} deg (draw {seed})")
         check(recall >= 0.9, f"only {recall:.3f} of the true inliers found")
@@ -335,6 +345,30 @@ def pose_phase() -> None:
     print(f"run_benchmark_precomputed, pose_backend gpu: {summary}")
     check(summary["n_pairs"] == n_pairs and summary["acc@5"] == 1.0
           and summary["auc@5"] > 0.5, f"pose summary {summary}")
+
+    # the native posekit backend (host code, built by g++ here) on the same
+    # scenes, held to the gpu backend's tight gate
+    t0 = time.time()
+    pose._lib()  # a failed build raises g++'s output
+    build_s = time.time() - t0
+    posekit = get_pose_estimator("posekit")
+    t0 = time.time()
+    poses = [posekit(s[0], s[1], s[2], s[2], max_epipolar_error=2.5)
+             for s in scenes]
+    pk_s = time.time() - t0
+    check(all(p_ is not None for p_ in poses), "posekit found no pose")
+    pk_errs = pair_errors([p_[0] for p_ in poses], [p_[1] for p_ in poses])
+    print(f"pose error against the truth, max(R_err, t_err) deg per pair: "
+          f"posekit {[round(e, 4) for e in pk_errs]}, gpu draw 9 "
+          f"{[round(e, 4) for e in gpu_errs]}; posekit built in "
+          f"{build_s:.1f} s, {pk_s * 1e3 / n_pairs:.1f} ms a pair on the host")
+    check(max(pk_errs) < 2.0, f"posekit's pose error is {max(pk_errs):.3f}"
+                              f" deg")
+    summary = run_benchmark_precomputed([(s[0], s[1]) for s in scenes],
+                                        pairs)
+    print(f"run_benchmark_precomputed, pose_backend posekit: {summary}")
+    check(summary["n_pairs"] == n_pairs and summary["acc@5"] == 1.0,
+          f"posekit pose summary {summary}")
 
     dev0, dev1, devK = p0.cuda(), p1.cuda(), Ks.cuda()
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -393,7 +427,6 @@ def main() -> int:
     from accelerated_features_tpu_torch.ops.resize import (preprocess_image,
                                                             resize_bilinear,
                                                             to_unit_float)
-    from accelerated_features_tpu_torch.ops.sample import l2_normalize
 
     # the plain versions' matmuls must be full fp32 (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -432,8 +465,7 @@ def main() -> int:
     errs = {}
     torch.set_grad_enabled(False)
     x = to_unit_float(torch.from_numpy(imgs[..., None].repeat(3, -1)).to(dev))
-    feats, logits, heat = xfeat_forward(xf.model.params, x)
-    feats = l2_normalize(feats)
+    feats, logits, heat = xfeat_forward(xf.model.params, x)  # raw map
     kheat = heatmap_decode(logits)
     rel = heat[..., 0].contiguous()
 
@@ -485,18 +517,71 @@ def main() -> int:
         check(torch.equal(i_k, i_p) and torch.equal(bits(v_k), bits(v_p)),
               f"topk_exact differs from _padded_top_k (scale {s_})")
 
-    # kernel B at K=4096 on the 76x100x64 map, with border points
+    # kernel B at K=4096 on the raw 76x100x64 map, with border points, at
+    # B=1 and B=4; then on a copy of the map with zero pixels, a pixel
+    # whose norm is under 1e-12 and keypoints whose taps leave the map
     kp4, _ = topk_keypoints_fused(kheat, rel, TOP_K, THR)
     pos = kp4.float().contiguous()
     pos[:, :6] = torch.tensor([[0, 0], [W - 1, H - 1], [W - 1, 0],
                                [0, H - 1], [W - 1, 301], [399, H - 1]],
                               dtype=torch.float32, device=dev)
-    out_k = sample_descriptors(feats[:1], pos[:1], (H, W))
-    out_p = plain_descriptors(feats[:1], pos[:1], (H, W))
-    errs["bicubic"] = (out_k - out_p).abs().max().item()
-    check(errs["bicubic"] <= 1e-5, f"kernel B max abs err {errs['bicubic']}")
-    print(f"check bicubic K={TOP_K} map {tuple(feats.shape[1:])}: "
-          f"max_abs_err {errs['bicubic']:.3g}")
+    holes = feats.clone()
+    holes[:, 10:12, 20:23] = 0.0
+    holes[:, 40, 50] = 1e-14
+    pos_out = pos.clone()
+    pos_out[:, 6:12] = torch.tensor(
+        [[-40, 100], [W + 40, 100], [300, -40], [300, H + 40],
+         [21.5 * W / 100, 10.5 * H / 76], [50.5 * W / 100, 40.5 * H / 76]],
+        dtype=torch.float32, device=dev)
+    errs["bicubic"] = 0.0
+    for tag, maps_, pos_ in (("B=1", feats[:1], pos[:1]), ("B=4", feats, pos),
+                             ("B=4 zero pixels, taps off the map", holes,
+                              pos_out)):
+        out_k = sample_descriptors(maps_, pos_, (H, W))
+        out_p = plain_descriptors(maps_, pos_, (H, W))
+        err = (out_k - out_p).abs().max().item()
+        errs["bicubic"] = max(errs["bicubic"], err)
+        print(f"check bicubic {tag} K={TOP_K} raw map "
+              f"{tuple(maps_.shape[1:])}: max_abs_err {err:.3g}")
+        check(err <= 1e-5 and bool(torch.isfinite(out_k).all()),
+              f"kernel B max abs err {err} ({tag})")
+    check(not bool(out_k[:, 6:10].any()),
+          "kernel B: a keypoint whose taps all leave the map is not zero")
+
+    # every kernel's wrapper refuses an input that requires grad while grad
+    # mode is on (it raises before it launches), and runs under no_grad
+    stem_params = {"block1": [{**xf.model.params["block1"][0],
+                               "w": xf.model.params["block1"][0]["w"]
+                               .clone().requires_grad_()},
+                              *xf.model.params["block1"][1:]],
+                   "skip1": xf.model.params["skip1"]}
+    marked = feats[:1].clone().requires_grad_()
+    guard_calls = {
+        "detect_fused": lambda: topk_keypoints_fused(
+            kheat[:1].clone().requires_grad_(), rel[:1], TOP_K, THR),
+        "topk_exact": lambda: topk_exact(
+            rel[:1].reshape(1, -1).clone().requires_grad_(), 100),
+        "bicubic": lambda: sample_descriptors(marked, pos[:1], (H, W)),
+        "mnn": lambda: batch_mnn_match_fused(
+            marked[0, :8].reshape(1, -1, 64),
+            feats[1, :8].reshape(1, -1, 64)),
+        "attention": lambda: flash_attention(
+            *(marked[0, :8].reshape(1, -1, 64),) * 3),
+        "stem_fused": lambda: stem_fused(stem_params, input_norm(x[:1])),
+    }
+    for name, call in guard_calls.items():
+        with torch.enable_grad():
+            try:
+                call()
+                refused = False
+            except RuntimeError as e:
+                refused = "no backward" in str(e)
+        check(refused, f"the {name} wrapper did not refuse an input that "
+                       f"requires grad")
+        call()  # grad mode is off here: it runs
+    torch.cuda.synchronize()
+    print(f"check grad guard: {', '.join(guard_calls)} refuse an input that "
+          f"requires grad under grad mode and run under no_grad")
 
     # kernel C at K1=K2=4096, B=4, ragged masks, on the real fp32
     # descriptors (image b against image b-1; images 1 and 0 are a true
@@ -1074,22 +1159,28 @@ def main() -> int:
           f"plain {pms:.4f} ms, torch.topk {lms:.4f} ms, bound {bms:.5f} ms "
           f"({by})")
 
+    # kernel B on the raw map: its plain version and the library yardstick
+    # both include the per-pixel normalization of the whole map
     maps, p1 = feats[:1].contiguous(), pos[:1].contiguous()
     out = sample_descriptors(maps, p1, (H, W))
     ms = time_ms(lambda: sample_descriptors(maps, p1, (H, W)))
     pms = time_ms(lambda: plain_descriptors(maps, p1, (H, W)), iters=20)
-    # library yardstick: grid_sample(bicubic) + F.normalize on the same map
-    # and points (grid x = 2x/(W-1) - 1 reproduces ix = x*w/(W-1) - 0.5)
-    nchw = maps.permute(0, 3, 1, 2).contiguous()
+    # library yardstick: F.normalize of the map, grid_sample(bicubic),
+    # F.normalize, on the same map and points (grid x = 2x/(W-1) - 1
+    # reproduces ix = x*w/(W-1) - 0.5)
     grid = (p1 / torch.tensor([W - 1, H - 1], device=dev) * 2 - 1)[:, None]
 
     def library():
-        s = F.grid_sample(nchw, grid, mode="bicubic", align_corners=False)
+        unit = F.normalize(maps, dim=-1).permute(0, 3, 1, 2)
+        s = F.grid_sample(unit, grid, mode="bicubic", align_corners=False)
         return F.normalize(s[:, :, 0].transpose(1, 2), dim=-1)
     lib_err = (library() - out).abs().max().item()
     lms = time_ms(library)
+    # bytes: the raw map read once, the keypoints read, the descriptors
+    # written; operations: per tap channel a square and a sum, a division,
+    # a weight and a sum, then the final norm
     nbytes = 4 * (maps.numel() + p1.numel() + out.numel())
-    bms, by = bound(nbytes, TOP_K * (16 * 64 * 2 + 64 * 3))
+    bms, by = bound(nbytes, TOP_K * (16 * 64 * 5 + 64 * 3))
     rows.append(dict(name="bicubic", route="cuda",
                      source="accelerated_features_tpu_torch/csrc/bicubic.cu",
                      replaces="accelerated_features_tpu/ops/pallas/"
@@ -1098,10 +1189,10 @@ def main() -> int:
                      max_abs_err=errs["bicubic"], ms=ms, plain_ms=pms,
                      bound_ms=bms, bound_by=by,
                      bound_peak="fp32 CUDA-core peak", library_ms=lms))
-    print(f"time bicubic K={TOP_K}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-          f"grid_sample+normalize {lms:.4f} ms (max abs diff to kernel "
-          f"{lib_err:.3g}), bound {bms:.4f} ms ({by}); also replaces "
-          f"bicubic.py:162")
+    print(f"time bicubic K={TOP_K}, raw map: kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, normalize+grid_sample+normalize {lms:.4f} ms (max "
+          f"abs diff to kernel {lib_err:.3g}), bound {bms:.5f} ms ({by}); "
+          f"also replaces bicubic.py:162 and bicubic_mxu.py:58")
 
     a, b_ = d1[:1].contiguous(), d2[:1].contiguous()
     va, vb = v1[:1].contiguous(), v2[:1].contiguous()

@@ -140,18 +140,30 @@ def test_dense_topk_routes_to_the_kernel(dev):
     assert detect_fused.topk_exact.launches == n + 1
 
 
-@pytest.mark.parametrize("b,h,w,k", [(1, 10, 13, 70), (2, 76, 100, 33)])
+@pytest.mark.parametrize("b,h,w,k", [(1, 10, 13, 70), (2, 76, 100, 33),
+                                     (4, 76, 100, 4096), (3, 76, 100, 4093)])
 def test_bicubic_kernel_matches_plain(dev, b, h, w, k):
+    """Raw maps with an all-zero pixel and a pixel whose norm is under
+    1e-12, keypoints on and past the borders; B = 4 at the main path's
+    K = 4096, and K that the block's keypoints (8) do not divide."""
     rng = np.random.default_rng(k)
     H, W = h * 8, w * 8
     maps = torch.tensor(rng.normal(size=(b, h, w, 64)), dtype=torch.float32)
+    maps[0, 1, 1] = 0.0
+    maps[-1, h // 2, w // 2] = 1e-14
     pos = torch.tensor(np.stack([rng.uniform(-9, W + 9, (b, k)),
                                  rng.uniform(-9, H + 9, (b, k))], -1),
                        dtype=torch.float32)
     pos[:, 0] = torch.tensor([W - 1, H - 1], dtype=torch.float32)
+    pos[:, 1] = torch.tensor([12.0, 12.0])  # taps on the zero pixel
+    pos[:, 2] = torch.tensor([(w // 2) * W / w + 4, (h // 2) * H / h + 4])
+    pos[:, 3] = torch.tensor([-40.0, H + 40.0])  # every tap off the map
+    n = bicubic.sample_descriptors.launches
     ref = bicubic.plain_descriptors(maps.to(dev), pos.to(dev), (H, W))
     got = bicubic.sample_descriptors(maps.to(dev), pos.to(dev), (H, W))
+    assert bicubic.sample_descriptors.launches == n + 1
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    assert not bool(got[:, 3].any())
 
 
 @pytest.mark.parametrize("k1,k2,gate", [(100, 37, -1.0), (129, 300, 0.2),
@@ -430,3 +442,91 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         d2 = torch.zeros(1, 64, 4, device=dev).transpose(1, 2)  # strided
         mnn.batch_mnn_match_fused(torch.zeros(1, 4, 64, device=dev), d2)
+
+
+def _guard_cases(dev):
+    """{kernel: (call, its inputs)}: one call of each wrapper at a small
+    shape; the inputs are the tensors a caller could mark."""
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=dev)
+    kheat, rel = heatmap_decode(t(1, 4, 6, 65).cpu()).to(dev), t(1, 4, 6)
+    cells, maps, pos = t(2, 300), t(1, 6, 8, 64), t(1, 20, 2).abs() * 20
+    d1, d2 = t(1, 40, 64), t(1, 50, 64)
+    q, k, v = t(1, 30, 96), t(1, 40, 96), t(1, 40, 96)
+    params = to_dev(stem_params(3), dev)
+    xg = t(1, 1, 32, 32)
+    return {
+        "A detect_fused": (lambda a, b: detect_fused.topk_keypoints_fused(
+            a, b, 16, 0.0), [kheat, rel]),
+        "A topk_exact": (lambda a: detect_fused.topk_exact(a, 16), [cells]),
+        "B bicubic": (lambda a, b: bicubic.sample_descriptors(
+            a, b, (48, 64)), [maps, pos]),
+        "C mnn": (mnn.batch_mnn_match_fused, [d1, d2]),
+        "D attention": (attention.flash_attention, [q, k, v]),
+        "E stem_fused": (lambda w, x: stem_fused.stem_fused(
+            {**params, "block1": [{**params["block1"][0], "w": w},
+                                  *params["block1"][1:]]}, x),
+                         [params["block1"][0]["w"], xg]),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["A detect_fused", "A topk_exact",
+                                    "B bicubic", "C mnn", "D attention",
+                                    "E stem_fused"])
+def test_kernels_refuse_inputs_that_require_grad(dev, kernel):
+    """With grad mode on, an input (for the stem: a weight) that requires
+    grad makes the wrapper raise before it launches; under no_grad the
+    same call runs the kernel."""
+    call, inputs = _guard_cases(dev)[kernel]
+    for i in range(len(inputs)):
+        marked = [x.clone().requires_grad_(j == i)
+                  for j, x in enumerate(inputs)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(*marked)
+        with torch.no_grad():
+            call(*marked)
+    call(*inputs)  # nothing requires grad: runs with grad mode on
+
+
+def test_matmuls_ignore_the_tf32_flag(dev):
+    """With `torch.backends.cuda.matmul.allow_tf32` turned on by the
+    caller, the plain MNN, `match_lighterglue`'s matches0 and
+    `match_xfeat_star`'s matches equal the results with it off, and the
+    caller's flag reads True again after each call."""
+    from accelerated_features_tpu_torch import XFeat
+    from accelerated_features_tpu_torch.models.lighterglue import LighterGlue
+    ckpt = Path(__file__).resolve().parents[1] / "artifacts"
+    rng = np.random.default_rng(7)
+    d = rng.normal(size=(2, 2, 3000, 64))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d1, d2 = (torch.tensor(x, dtype=torch.float32, device=dev) for x in d)
+    xf = XFeat(str(ckpt / "run_md_ckpt13250.npz"), top_k=2048, device=dev)
+    lg = LighterGlue(str(ckpt / "lighterglue_ft_ckpt7791.npz"), dev)
+    img = (rng.uniform(size=(256, 320)) * 255).astype(np.uint8)
+    img = np.kron(img[::4, ::4], np.ones((4, 4), np.uint8))
+    f0 = {**xf.detectAndCompute(img)[0], "image_size": (320, 256)}
+    f1 = {**xf.detectAndCompute(np.roll(img, 8, 1))[0],
+          "image_size": (320, 256)}
+
+    def run():
+        return (batch_mnn_match(d1, d2),
+                lg.forward_padded(f0, f1)["matches0"],
+                xf.match_xfeat_star(img, np.roll(img, 8, 1)))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = run()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = run()
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert torch.equal(on[0][0], off[0][0]) and torch.equal(on[0][1],
+                                                            off[0][1])
+    assert torch.equal(on[1], off[1])
+    assert len(off[2][0]) > 0
+    for a, b in zip(on[2], off[2]):
+        np.testing.assert_array_equal(a, b)

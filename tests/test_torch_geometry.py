@@ -263,11 +263,13 @@ def test_draw_samples_are_subsets_of_valid_rows():
 
 
 def test_pose_estimator_registry_and_host_contract():
-    with pytest.raises(NotImplementedError, match="posekit"):
-        get_pose_estimator("posekit")
+    p0, p1, R, t, good = scene(30, 300)
+    R_pk, t_pk, mask_pk = get_pose_estimator("posekit")(p0, p1, K, K)
+    assert R_pk.shape == (3, 3) and t_pk.shape == (3,)
+    assert mask_pk.dtype == bool and mask_pk.shape == (300,)
+    assert get_pose_estimator() is get_pose_estimator("posekit")
     with pytest.raises(ValueError):
         get_pose_estimator("tpu")
-    p0, p1, R, t, good = scene(30, 300)
     est = get_pose_estimator("gpu", device="cpu")
     assert est(p0[:7], p1[:7], K, K) is None
     R_got, t_got, mask = est(p0, p1, K, K, max_epipolar_error=2.5)
@@ -411,10 +413,11 @@ def test_run_benchmark_batched_equals_per_pair():
     json_path = str(HOLDOUT / "rendered_pose_pairs.json")
     per_pair = md.run_benchmark(
         md.make_matcher("xfeat", 1024, CKPT, device="cpu"), str(HOLDOUT),
-        json_path, limit=2, progress=False, device="cpu")
+        json_path, limit=2, progress=False, pose_backend="gpu",
+        device="cpu")
     batched = md.run_benchmark_batched(
         str(HOLDOUT), json_path, top_k=1024, weights=CKPT, batch_size=3,
-        limit=2, progress=False, device="cpu")
+        limit=2, progress=False, pose_backend="gpu", device="cpu")
     assert batched["n_pairs"] == 2
     assert batched["mean_matches"] == per_pair["mean_matches"] > 100
     assert batched["mean_inliers"] == per_pair["mean_inliers"]
@@ -422,7 +425,7 @@ def test_run_benchmark_batched_equals_per_pair():
         assert abs(batched[k] - per_pair[k]) < 1e-9
     bf16 = md.run_benchmark_batched(
         str(HOLDOUT), json_path, top_k=1024, weights=CKPT, batch_size=3,
-        limit=2, progress=False, device="cpu",
+        limit=2, progress=False, pose_backend="gpu", device="cpu",
         compute_dtype=torch.bfloat16, fused_stem=True)
     assert abs(bf16["mean_matches"] - per_pair["mean_matches"]) \
         < 0.1 * per_pair["mean_matches"]

@@ -205,21 +205,56 @@ def test_samplers_match_jax(mode):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
-def test_bicubic_plain_matches_jax():
-    """Kernel B's plain version against l2_normalize(sample_bicubic)."""
+def _unit_rows(maps):
+    return np.asarray(jax_l2_normalize(jnp.asarray(maps)))
+
+
+@pytest.mark.parametrize("case", ["raw", "zero pixel", "tiny pixel",
+                                  "borders"])
+def test_bicubic_plain_matches_jax(case):
+    """Kernel B's function on the backbone's raw map, through the wrapper
+    on the CPU, against the JAX package's sparse path:
+    l2_normalize(sample_bicubic(l2_normalize(maps))). Edge cases: an
+    all-zero pixel and a pixel whose norm is under 1e-12 (divided by
+    1e-12, as F.normalize does) under the taps of some keypoints, and
+    keypoints on and past the borders (taps off the map are zero)."""
     maps, pos, hw = _sample_case(3)
-    ref = jax_l2_normalize(jsample.sample_bicubic(jnp.asarray(maps),
-                                                  jnp.asarray(pos), hw))
+    H, W = hw
+    if case == "zero pixel":
+        maps[:, 3:5, 4:6] = 0.0
+        pos[:, 4:20] = [4 * 8 + 4, 3 * 8 + 4] + np.random.default_rng(
+            0).uniform(-12, 12, (16, 2))
+    elif case == "tiny pixel":
+        maps[:, 6, 7] = 1e-14
+        maps[:, 6, 8] = 3e-13
+        pos[:, 4:20] = [7 * 8 + 4, 6 * 8 + 4] + np.random.default_rng(
+            1).uniform(-12, 12, (16, 2))
+    elif case == "borders":
+        pos[:, 4:] = np.stack(np.meshgrid(
+            np.linspace(-20, W + 19, 37), [-3, -0.5, 0, 1, H - 2, H - 1,
+                                           H - 0.5, H + 20]), -1
+        ).reshape(-1, 2)[:pos.shape[1] - 4]
+    ref = jax_l2_normalize(jsample.sample_bicubic(
+        jax_l2_normalize(jnp.asarray(maps)), jnp.asarray(pos), hw))
     got = cuda_bicubic.sample_descriptors(t(maps), t(pos), hw)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    if case == "borders":  # every tap off the map: the zero descriptor
+        h, w = maps.shape[1:3]
+        x0 = np.floor(pos[..., 0] * (w / (W - 1)) - 0.5)
+        y0 = np.floor(pos[..., 1] * (h / (H - 1)) - 0.5)
+        far = (x0 + 2 < 0) | (x0 - 1 >= w) | (y0 + 2 < 0) | (y0 - 1 >= h)
+        assert far.any() and not got.numpy()[far].any()
 
 
 @pytest.mark.parametrize("kernel,atol", [(sample_bicubic_fused, 3e-2),
                                          (sample_bicubic_w2, 6e-3)])
 def test_bicubic_plain_matches_pallas_interpret(kernel, atol):
     """Against both Pallas samplers, which read the map in bf16: the
-    tolerances of their own tests."""
+    tolerances of their own tests. They sample an already normalized map,
+    as the JAX package's sparse path gives them, so both get unit rows
+    (the plain version normalizes them again, at rounding level)."""
     maps, pos, hw = _sample_case(4, h=10, w=13, k=70)
+    maps = _unit_rows(maps)
     pos = np.clip(pos, 2, [hw[1] - 3, hw[0] - 3]).astype(np.float32)
     ref = kernel(jnp.asarray(maps), jnp.asarray(pos), hw, interpret=True)
     got = cuda_bicubic.plain_descriptors(t(maps), t(pos), hw)
@@ -229,10 +264,12 @@ def test_bicubic_plain_matches_pallas_interpret(kernel, atol):
 @pytest.mark.parametrize("h,w,k", [(60, 80, 512), (10, 13, 70)])
 def test_bicubic_plain_matches_mxu_sampler_interpret(h, w, k):
     """The experimental VMEM-resident sampler (`experiments/bicubic_mxu.py`)
-    computes the function of kernel B without the L2 norm, in bf16. The
+    computes the function of kernel B without the L2 norms, in bf16. The
     port's plain sampler agrees with it at the tolerance its own test
-    states (`tests/test_bicubic_mxu.py`: atol 0.05, rtol 0.05), so kernel B
-    serves that TPU kernel too."""
+    states (`tests/test_bicubic_mxu.py`: atol 0.05, rtol 0.05), and on a
+    normalized map, as the sparse path gives it, kernel B's function
+    agrees with its samples normalized, so kernel B serves that TPU kernel
+    too."""
     rng = np.random.default_rng(h)
     hw = (h * 8, w * 8)
     maps = rng.normal(size=(2, h, w, 64)).astype(np.float32)
@@ -244,9 +281,12 @@ def test_bicubic_plain_matches_mxu_sampler_interpret(h, w, k):
     got = sample.sample_bicubic(t(maps), t(pos), hw)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=0.05,
                                rtol=0.05)
-    normed = cuda_bicubic.plain_descriptors(t(maps), t(pos), hw)
+    unit = _unit_rows(maps)
+    ref_unit = sample_bicubic_mxu(jnp.asarray(unit), jnp.asarray(pos), hw,
+                                  interpret=True)
+    normed = cuda_bicubic.plain_descriptors(t(unit), t(pos), hw)
     np.testing.assert_allclose(
-        normed.numpy(), np.asarray(jax_l2_normalize(ref)), atol=3e-2)
+        normed.numpy(), np.asarray(jax_l2_normalize(ref_unit)), atol=3e-2)
 
 
 def _desc_case(kind, seed, k1, k2):
@@ -333,3 +373,41 @@ def test_batch_mnn_matches_jax_vmap():
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
     np.testing.assert_array_equal(mask.numpy(), np.asarray(ref_mask))
     assert cuda_mnn.batch_mnn_match_fused.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["A topk_exact", "B bicubic",
+                                    "D attention", "E stem_fused"])
+def test_wrappers_carry_gradients_on_the_cpu(kernel):
+    """On CPU tensors each wrapper runs its plain version, which autograd
+    records: an input (for the stem: a weight) that requires grad gets a
+    finite, non-zero gradient, and nothing is launched. (On CUDA tensors
+    the wrappers refuse such inputs: `tests/test_torch_cuda.py`.)"""
+    from accelerated_features_tpu_torch.ops.cuda import attention, stem_fused
+    wrappers = (cuda_detect.topk_exact, cuda_bicubic.sample_descriptors,
+                attention.flash_attention, stem_fused.stem_fused)
+    before = [fn.launches for fn in wrappers]
+    rng = np.random.default_rng(0)
+
+    def leaf(*shape):
+        return t(rng.normal(size=shape).astype(np.float32)).requires_grad_()
+    if kernel == "A topk_exact":
+        x = leaf(2, 300)
+        out = cuda_detect.topk_exact(x, 16)[0]
+    elif kernel == "B bicubic":
+        x = leaf(1, 6, 8, 64)
+        pos = t(rng.uniform(0, 40, (1, 20, 2)).astype(np.float32))
+        out = cuda_bicubic.sample_descriptors(x, pos, (48, 64))
+    elif kernel == "D attention":
+        x = leaf(1, 30, 96)
+        out = attention.flash_attention(x, leaf(1, 40, 96), leaf(1, 40, 96))
+    else:
+        params = load_params(CKPT)
+        x = params["block1"][0]["w"].clone().requires_grad_()
+        params["block1"][0] = {**params["block1"][0], "w": x}
+        out = stem_fused.stem_fused(params, t(rng.normal(
+            size=(1, 1, 32, 32)).astype(np.float32)))
+    assert out.requires_grad
+    (out * t(rng.normal(size=out.shape).astype(np.float32))).sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+    assert bool(x.grad.abs().sum() > 0)
+    assert [fn.launches for fn in wrappers] == before

@@ -7,13 +7,16 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from accelerated_features_tpu.api import load_params as jax_load_params
-from accelerated_features_tpu.models.params import (fold_batchnorm,
+from accelerated_features_tpu.models.params import (count_params,
+                                                    fold_batchnorm,
                                                     init_xfeat_params)
 from accelerated_features_tpu_torch import params_from_jax
 from accelerated_features_tpu_torch.models.params import (
-    fold_batchnorm as port_fold_batchnorm, load_npz_tree, load_params)
+    count_params as port_count_params, fold_batchnorm as port_fold_batchnorm,
+    init_xfeat_params as port_init_xfeat_params, load_npz_tree, load_params)
 
 CKPT = str(Path(__file__).resolve().parents[1] / "artifacts"
            / "run_md_ckpt13250.npz")
@@ -81,3 +84,53 @@ def test_params_are_float32_torch_layout():
     assert tuple(p["keypoint_head"][-1]["w"].shape) == (65, 64, 1, 1)
     assert tuple(p["fine_matcher"][0]["w"].shape) == (512, 128)
     assert all("mean" not in layer for layer in p["block3"])
+
+
+def test_init_tree_has_the_jax_structure_shapes_and_bounds():
+    """The port's random init (drawn by torch) against the JAX init: the
+    same tree, the same shapes, the same parameter count, and every value
+    inside the bound JAX draws it from (running stats exactly 0 and 1)."""
+    ref = init_xfeat_params(jax.random.key(0))
+    got = port_init_xfeat_params()
+    assert port_count_params(got) == count_params(ref) \
+        == port_count_params(ref)
+    fan_in = {}  # a layer's weight and bias share the weight's fan-in
+    for path, key, a, b in _pairs(ref, got):
+        if key == "w":
+            fan_in[path[:-2]] = int(np.prod(np.shape(a)[:-1]))
+    for path, key, a, b in _pairs(ref, got):
+        a = np.asarray(a)
+        assert b.shape == a.shape and b.dtype == np.float32, path
+        if key in ("mean", "var"):
+            assert np.array_equal(b, a), path
+            continue
+        bound = 1.0 / np.sqrt(fan_in[path[:-2]])
+        assert np.abs(a).max() <= bound, path
+        assert np.abs(b).max() <= bound, path
+        if b.size >= 64:  # spread over the interval, as JAX's draw
+            assert np.abs(b).max() > 0.9 * bound, path
+    again = port_init_xfeat_params(torch.Generator().manual_seed(0))
+    other = port_init_xfeat_params(torch.Generator().manual_seed(1))
+    leaves = [(b, c, d) for (_, _, b, c), (_, _, _, d) in
+              zip(_pairs(got, again), _pairs(got, other))]
+    assert all(np.array_equal(b, c) for b, c, _ in leaves)
+    assert not all(np.array_equal(b, d) for b, _, d in leaves)
+
+
+def test_random_extractor_runs_on_the_cpu():
+    """`XFeat(weights=None)` is a random, BatchNorm-folded extractor, as in
+    the JAX package; it extracts from a seeded texture at the untrained
+    threshold 0.012."""
+    from accelerated_features_tpu_torch import XFeat
+    xf = XFeat(weights=None, top_k=256, detection_threshold=0.012,
+               device="cpu")
+    assert torch.equal(xf.model.params["block1"][0]["w"],
+                       load_params(None)["block1"][0]["w"])
+    rng = np.random.default_rng(0)
+    img = np.kron(rng.uniform(0, 255, (24, 32)), np.ones((4, 4)))
+    out = xf.detectAndCompute(img.astype(np.uint8))[0]
+    n = len(out["keypoints"])
+    assert 0 < n <= 256 and out["descriptors"].shape == (n, 64)
+    assert bool(torch.isfinite(out["descriptors"]).all())
+    assert torch.allclose(out["descriptors"].norm(dim=1), torch.ones(n),
+                          atol=1e-5)

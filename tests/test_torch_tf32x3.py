@@ -19,7 +19,9 @@ from accelerated_features_tpu_torch.ops.cuda.attention import \
     attention_reference
 from accelerated_features_tpu_torch.ops.cuda.mnn import near_ties
 from accelerated_features_tpu_torch.ops.matching import NEG, batch_mnn_match
-from accelerated_features_tpu_torch.ops.precision import (tf32_cut,
+from accelerated_features_tpu_torch.ops.precision import (full_fp32_convs,
+                                                          full_fp32_matmuls,
+                                                          tf32_cut,
                                                           tf32_matmul,
                                                           tf32_round,
                                                           tf32_split,
@@ -229,3 +231,32 @@ def test_attention_on_single_tf32_products_fails_the_gate(d):
     got = attention_emulated(tq, tk, tv, None, tf32_matmul)
     ref = attention_reference(tq, tk, tv, None)
     assert bool(((got - ref).abs() > 2e-5 + 1e-4 * ref.abs()).any())
+
+
+@pytest.mark.parametrize("switch,backend", [
+    (full_fp32_convs, torch.backends.cudnn),
+    (full_fp32_matmuls, torch.backends.cuda.matmul)])
+@pytest.mark.parametrize("caller", [True, False])
+def test_full_fp32_switches_restore_the_callers_flag(switch, backend,
+                                                     caller):
+    """Each switch clears its TF32 flag inside the call, as a `with` block
+    and as a decorator, and leaves the caller's value after it, also when
+    the call raises."""
+    prev = backend.allow_tf32
+    try:
+        backend.allow_tf32 = caller
+        with switch():
+            assert backend.allow_tf32 is False
+        assert backend.allow_tf32 is caller
+
+        @switch()
+        def inside():
+            return backend.allow_tf32
+
+        assert inside() is False and inside() is False
+        assert backend.allow_tf32 is caller
+        with pytest.raises(ZeroDivisionError), switch():
+            1 / 0
+        assert backend.allow_tf32 is caller
+    finally:
+        backend.allow_tf32 = prev
