@@ -20,6 +20,7 @@ import torch
 
 from ..ops.cuda.mnn import batch_mnn_match_fused
 from ..ops.extraction import detect_and_compute
+from ..utils.imageio import imread, resize
 
 Feats = Tuple[np.ndarray, np.ndarray, np.ndarray]   # kpts, descs, valid
 
@@ -37,9 +38,8 @@ def extract_features_batched(params: Dict[str, Any],
     size_hw are grouped into batches; size_hw None means the file's own
     size (bucketed by actual shape, each file decoded once, buckets
     flushed as they fill). `params` is the port's tensor tree; the batches
-    run on its device. Returns {key: (kpts, descs, valid)} as numpy."""
-    import cv2
-
+    run on its device. Returns {key: (kpts, descs, valid)} as numpy. PNGs
+    are read without cv2 (`utils/imageio`)."""
     if compute_dtype is None:
         compute_dtype = torch.float32    # per-pair-path parity default
     device = params["skip1"]["w"].device
@@ -63,12 +63,8 @@ def extract_features_batched(params: Dict[str, Any],
             print(f"\r[{tag}] {done}/{total}", end="", flush=True)
 
     def decode(path, size_hw=None):
-        im = cv2.imread(os.path.join(data_root, path))
-        if im is None:
-            raise FileNotFoundError(path)
-        if size_hw is not None and im.shape[:2] != tuple(size_hw):
-            im = cv2.resize(im, (int(size_hw[1]), int(size_hw[0])))
-        return im
+        im = imread(os.path.join(data_root, path))
+        return im if size_hw is None else resize(im, size_hw)
 
     # fixed-size records: lazy per-chunk decode, grouped up front
     sized: Dict[tuple, list] = {}

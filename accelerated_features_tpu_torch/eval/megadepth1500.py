@@ -21,7 +21,8 @@ Run on the committed rendered holdout (150 pairs, 800x608):
         --matcher xfeat --weights artifacts/run_md_ckpt13250.npz \
         --top_k 2048 --limit 100 [--pose_backend gpu] [--device cpu]
 
-Reading images needs `cv2`, imported only by the functions that read.
+PNGs are read by `utils/imageio.read_png`, without cv2; other formats
+and resizing to a stored eval size need `cv2`, imported only then.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..geometry import get_pose_estimator
+from ..utils.imageio import imread, resize
 from .metrics import pose_errors_to_summary, relative_pose_error
 
 # the committed rendered holdout's manifest
@@ -52,7 +54,7 @@ def load_pairs(json_path: str = DEFAULT_JSON) -> List[dict]:
         return json.load(f)
 
 
-def _resize_pair_images(im0, im1, pair, cv2):
+def _resize_pair_images(im0, im1, pair):
     """Resize to the stored eval sizes (`size0_hw`, (h, w)) and return the
     stored keypoint -> intrinsics scale factors (`scale0`, `scale1`)."""
     out = []
@@ -61,7 +63,7 @@ def _resize_pair_images(im0, im1, pair, cv2):
                                     (im1, "size1_hw", "scale1")]:
         hw = pair.get(size_key)
         if hw is not None:
-            im = cv2.resize(im, (int(hw[1]), int(hw[0])))
+            im = resize(im, hw)
         sc = pair.get(scale_key)
         scales.append(tuple(sc) if sc is not None else (1.0, 1.0))
         out.append(im)
@@ -111,8 +113,7 @@ def run_benchmark(matcher_fn: MatcherFn, data_root: str,
                   pose_backend: str = "posekit", device: Device = None
                   ) -> Dict[str, float]:
     """Image-based benchmark, one pair at a time (needs the images under
-    `data_root` and `cv2`)."""
-    import cv2
+    `data_root`)."""
     pairs = load_pairs(json_path)
     if limit:
         pairs = pairs[:limit]
@@ -125,11 +126,9 @@ def run_benchmark(matcher_fn: MatcherFn, data_root: str,
         except ImportError:
             pass
     for pair in it:
-        im0 = cv2.imread(os.path.join(data_root, pair["pair_names"][0]))
-        im1 = cv2.imread(os.path.join(data_root, pair["pair_names"][1]))
-        if im0 is None or im1 is None:
-            raise FileNotFoundError(pair["pair_names"])
-        im0, im1, sc0, sc1 = _resize_pair_images(im0, im1, pair, cv2)
+        im0 = imread(os.path.join(data_root, pair["pair_names"][0]))
+        im1 = imread(os.path.join(data_root, pair["pair_names"][1]))
+        im0, im1, sc0, sc1 = _resize_pair_images(im0, im1, pair)
         mk0, mk1 = matcher_fn(im0, im1)
         errors.append(compute_pose_error(pair, mk0, mk1, sc0, sc1,
                                          ransac_thr, pose_backend, device))

@@ -32,7 +32,14 @@ Run from the root of a checkout. In order, it
      the port's CPU path from the same samples, and through
      `run_benchmark_precomputed`; then the native `posekit` backend (built
      by g++ from `native/posekit.cpp`) on the same scenes, beside it;
-  5. times each kernel against its plain version, its bound and, where one
+  5. drives the SfM/SLAM path (`slam_phase`): a holdout pair read without
+     cv2 through `match_xfeat` against the CPU path; kernels A, B and C
+     against their plain versions at 640x480, K=2048; `IncrementalSlam`
+     with its default XFeat front end over a rendered 32-frame loop, loop
+     closure off and on (a loop must close, the window BA must end under
+     2 px, loop closure must not worsen ATE); one window BA on the card
+     against the CPU, its run-to-run spread, and a profile of a keyframe;
+  6. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function, and
      profiles one call of each matcher.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
@@ -43,7 +50,6 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -52,6 +58,9 @@ H, W = 608, 800          # the committed rendered holdout's image size
 TOP_K = 4096
 THR = 0.05
 SHIFT = (24, 16)         # (dx, dy) of the rolled copy
+# the SLAM benchmark's trajectory (`apps/eval_slam.py`'s defaults)
+SLAM_H, SLAM_W, SLAM_K = 480, 640, 2048
+SLAM_FRAMES, SLAM_SEED = 32, 3
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32 FLOP/s on
 # the CUDA cores (no tensor cores), dense TF32 and bf16 FLOP/s on the
@@ -116,16 +125,19 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_call(name: str, fn) -> None:
-    """Print where the time of one fn() call goes, by device kernel."""
+def profile_call(name: str, fn, keep=None):
+    """Print where the time of one fn() call goes, by device kernel, and
+    return fn()'s result. With `keep`, print only when keep(result)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    if keep is not None and not keep(result):
+        return result
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -144,6 +156,7 @@ def profile_call(name: str, fn) -> None:
     for kname, (n, t) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:15]:
         print(f"  {t / 1e3:8.4f} ms  x{n:<3d} {kname[:100]}")
+    return result
 
 
 def median_wall_ms(fn, calls: int = 5):
@@ -383,6 +396,243 @@ def pose_phase() -> None:
     profile_call("ransac_essential_batch", batch)
 
 
+def slam_phase(root: Path, counters: dict) -> dict:
+    """The SfM/SLAM path on the card, as `apps/eval_slam.py` runs it.
+
+    First the first real images on the card: one holdout pair, read by the
+    cv2-free `read_png`, through `match_xfeat` at top_k 2048, against the
+    port's CPU path. Then the 32-frame 640x480 loop trajectory of seed 3
+    (arc 35 deg, 16 quads), textured with crops of the holdout PNGs: kernels
+    A, B and C against their plain versions on two of its frames at
+    K = 2048, then `IncrementalSlam` with its default front end
+    (`XFeat(top_k=2048)`, the trained weights) on the card, loop closure
+    off and on, each run counted on its own. Fails unless A, B and C ran in
+    both runs, a loop closed, the odometry run's last window BA ends under
+    2 px (the bound of the JAX package's tracking test), loop closure's
+    ATE is no worse than odometry's, and one window BA solved on the card
+    agrees with the port's CPU solve within the gates of
+    `tests/test_torch_sfm.py::test_window_ba_problem_matches_jax` and
+    with itself, bit for bit, over five solves. Prints the per-frame wall
+    by stage, a profile of one keyframe, the window BA's time, and kernel
+    times at this shape.
+    Returns what the kernel rows need."""
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch import XFeat
+    from accelerated_features_tpu_torch.apps.eval_slam import (
+        device_label, gt_pose6, summarize)
+    from accelerated_features_tpu_torch.eval.megadepth1500 import (
+        compute_pose_error, load_pairs)
+    from accelerated_features_tpu_torch.models.backbone import xfeat_forward
+    from accelerated_features_tpu_torch.ops.cuda.bicubic import (
+        plain_descriptors, sample_descriptors)
+    from accelerated_features_tpu_torch.ops.cuda.detect_fused import \
+        topk_keypoints_fused
+    from accelerated_features_tpu_torch.ops.cuda.mnn import (
+        batch_mnn_match_fused, near_ties)
+    from accelerated_features_tpu_torch.ops.detect import (heatmap_decode,
+                                                           score_map,
+                                                           topk_keypoints)
+    from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
+    from accelerated_features_tpu_torch.ops.resize import to_unit_float
+    from accelerated_features_tpu_torch.sfm import (IncrementalSlam,
+                                                    SlamConfig,
+                                                    bundle_adjust,
+                                                    reprojection_rmse)
+    from accelerated_features_tpu_torch.train.render import \
+        render_trajectory
+    from accelerated_features_tpu_torch.utils.imageio import (load_textures,
+                                                              read_png)
+    dev = torch.device("cuda")
+    label = device_label(dev)
+    holdout = root / "artifacts" / "rendered_pose_holdout"
+    weights = str(root / "artifacts" / "run_md_ckpt13250.npz")
+    xf = XFeat(weights, top_k=SLAM_K, device="cuda")
+    xf_cpu = XFeat(weights, top_k=SLAM_K, device="cpu")
+
+    # ---- a holdout pair, read without cv2, against the CPU path ----------
+    pair = load_pairs(str(holdout / "rendered_pose_pairs.json"))[0]
+    ims = [read_png(holdout / n) for n in pair["pair_names"]]
+    m0, m1 = xf.match_xfeat(*ims)
+    c0, c1 = xf_cpu.match_xfeat(*ims)
+    got_p = {tuple(r) for r in np.concatenate([m0, m1], 1).tolist()}
+    ref_p = {tuple(r) for r in np.concatenate([c0, c1], 1).tolist()}
+    share = len(got_p & ref_p) / max(len(got_p), len(ref_p))
+    err = compute_pose_error(pair, m0, m1)
+    got_f = xf.detectAndCompute(ims[0])[0]
+    ref_f = xf_cpu.detectAndCompute(ims[0])[0]
+    at = {tuple(p_): i for i, p_ in enumerate(ref_f["keypoints"].tolist())}
+    both = [(i, at[tuple(p_)]) for i, p_ in
+            enumerate(got_f["keypoints"].cpu().tolist()) if tuple(p_) in at]
+    overlap = len(both) / max(len(at), len(got_f["keypoints"]))
+    gi, ri = (torch.tensor(c) for c in zip(*both))
+    derr = (got_f["descriptors"].cpu()[gi]
+            - ref_f["descriptors"][ri]).abs().max().item()
+    print(f"holdout pair {pair['pair_names']} read by read_png: "
+          f"{len(m0)} matches on the card, {len(c0)} on the CPU, "
+          f"{share:.4f} of pairs shared; keypoint overlap {overlap:.4f}, "
+          f"descriptor max abs err {derr:.3g}; posekit on the card's "
+          f"matches: R_err {err['R_err']:.3f} deg, t_err {err['t_err']:.3f}"
+          f" deg, {err['n_inliers']} inliers")
+    check(len(m0) > 100 and np.isfinite(m0).all() and share >= 0.98
+          and overlap >= 0.99 and derr <= 1e-3,
+          "match_xfeat on the holdout pair disagrees with the CPU path")
+
+    # ---- the frames -------------------------------------------------------
+    t0 = time.time()
+    rng = np.random.default_rng(SLAM_SEED)
+    texs = load_textures(holdout / "MegaDepth_v1", 16, rng)
+    traj = render_trajectory(rng, texs, SLAM_FRAMES, SLAM_W, SLAM_H,
+                             n_quads=16, arc_deg=35.0, loop=True)
+    gt6 = np.stack([gt_pose6(T) for T in traj["poses"]])
+    print(f"slam: rendered {SLAM_FRAMES} frames {SLAM_W}x{SLAM_H} (seed "
+          f"{SLAM_SEED}, holdout textures) in {time.time() - t0:.1f} s")
+
+    # ---- kernels A, B and C at this shape, against their plain versions --
+    x = to_unit_float(torch.from_numpy(traj["images"][:2]).to(dev))
+    maps, logits, heat = xfeat_forward(xf.model.params, x)
+    kh, rl = heatmap_decode(logits).contiguous(), heat[..., 0].contiguous()
+    kp_k, s_k = topk_keypoints_fused(kh, rl, SLAM_K, THR)
+    kp_p, s_p = topk_keypoints(score_map(kh, rl, THR), SLAM_K)
+    check(torch.equal(kp_k, kp_p) and torch.equal(s_k, s_p),
+          f"kernel A differs from plain at {SLAM_W}x{SLAM_H}")
+    errs = {"detect_fused": (s_k - s_p).abs().max().item()}
+    pos = kp_k.float().contiguous()
+    d_k = sample_descriptors(maps, pos, (SLAM_H, SLAM_W))
+    d_p = plain_descriptors(maps, pos, (SLAM_H, SLAM_W))
+    errs["bicubic"] = (d_k - d_p).abs().max().item()
+    check(errs["bicubic"] <= 1e-5, f"kernel B max abs err {errs['bicubic']}"
+                                   f" at {SLAM_W}x{SLAM_H}")
+    da, db = d_k[:1].contiguous(), d_k[1:].contiguous()
+    va, vb = s_k[:1] > 0, s_k[1:] > 0
+    i_k, mk = batch_mnn_match_fused(da, db, va, vb, -1.0)
+    i_p, mp = batch_mnn_match(da, db, va, vb, -1.0)
+    tie, smax = near_ties(da, db, va, vb, -1.0, eps=1e-6)
+    diff = (i_k != i_p) | (mk != mp)
+    picked = (da.double() * torch.gather(
+        db.double(), 1, i_k[..., None].expand(-1, -1, 64))).sum(-1)
+    errs["mnn"] = (smax - picked)[smax > -1e8].max().item()
+    print(f"slam shape checks K={SLAM_K}: kernel A equal to plain "
+          f"(valid {(s_k > 0).sum(1).tolist()}), kernel B max abs err "
+          f"{errs['bicubic']:.3g}, kernel C {int(diff.sum())} rows differ, "
+          f"{int((diff & ~tie).sum())} off near-ties, {int(mk.sum())} "
+          f"matches")
+    check(not bool((diff & ~tie).any()) and errs["mnn"] <= 1e-6,
+          f"kernel C differs from plain at K={SLAM_K}")
+    times = {}
+    k1, r1, m1_, p1_ = kh[:1], rl[:1], maps[:1], pos[:1].contiguous()
+    times["detect_fused"] = (
+        time_ms(lambda: topk_keypoints_fused(k1, r1, SLAM_K, THR)),
+        time_ms(lambda: topk_keypoints(score_map(k1, r1, THR), SLAM_K),
+                iters=20),
+        bound(4 * (k1.numel() + r1.numel()) + 20 * SLAM_K,
+              40 * k1.numel()))
+    times["bicubic"] = (
+        time_ms(lambda: sample_descriptors(m1_, p1_, (SLAM_H, SLAM_W))),
+        time_ms(lambda: plain_descriptors(m1_, p1_, (SLAM_H, SLAM_W)),
+                iters=20),
+        bound(4 * (m1_.numel() + p1_.numel() + SLAM_K * 64),
+              SLAM_K * (16 * 64 * 5 + 64 * 3)))
+    times["mnn"] = (
+        time_ms(lambda: batch_mnn_match_fused(da, db, va, vb, -1.0)),
+        time_ms(lambda: batch_mnn_match(da, db, va, vb, -1.0), iters=20),
+        bound(4 * (da.numel() + db.numel()) + 11 * SLAM_K,
+              3 * 2.0 * SLAM_K * SLAM_K * 64, PEAK_TF32))
+    for k, (ms, pms, (bms, by)) in times.items():
+        print(f"time {k} at {SLAM_W}x{SLAM_H}, K={SLAM_K}: kernel {ms:.4f} "
+              f"ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}) on "
+              f"{label}")
+
+    # ---- the tracker, loop closure off and on, each counted on its own ---
+    runs, launches = {}, {}
+    for lc in (False, True):
+        tag = "loop_closure" if lc else "odometry"
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.time()
+        slam = IncrementalSlam(traj["K"], SlamConfig(enable_loop_closure=lc))
+        outs = [slam.process_frame(im) for im in traj["images"]]
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        launches[tag] = {k: counters[k].launches
+                         for k in ("detect_fused", "bicubic", "mnn")}
+        res = summarize(slam, gt6, float(np.mean(
+            [o["n_inliers"] for o in outs[1:]])), [o["ms"] for o in outs])
+        runs[tag] = (slam, res)
+        print(f"slam {tag}: {wall_s:.1f} s for {SLAM_FRAMES} frames, "
+              f"launches {launches[tag]} ({SLAM_FRAMES} extractions); "
+              f"ATE {res['ate_rmse']:.4f} ({res['ate_pct_of_extent']:.2f}%"
+              f" of extent), {res['n_keyframes']} keyframes, "
+              f"{res['n_loop_closures']} loop closures, "
+              f"{res['n_relocalizations']} relocalizations, mean inliers "
+              f"{res['mean_inliers']:.1f}, last window BA RMSE "
+              f"{res['last_window_ba_rmse_px']} px")
+        for stat in ("median", "mean"):
+            print(f"slam {tag} {stat} ms per frame on {label}: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v
+                              in res[f"{stat}_ms_per_frame"].items()))
+        check(all(n > 0 for n in launches[tag].values()),
+              f"a kernel was not launched on the SLAM path: {launches}")
+    odo, lcl = runs["odometry"][1], runs["loop_closure"][1]
+    check(lcl["n_loop_closures"] >= 1, "the SLAM run closed no loop")
+    check(odo["last_window_ba_rmse_px"] is not None
+          and odo["last_window_ba_rmse_px"] < 2.0,
+          f"last window BA RMSE {odo['last_window_ba_rmse_px']} px")
+    check(lcl["ate_rmse"] <= odo["ate_rmse"],
+          f"loop closure's ATE {lcl['ate_rmse']} is worse than odometry's "
+          f"{odo['ate_rmse']}")
+
+    # ---- one window BA: card against CPU, run-to-run spread, time --------
+    problem = runs["odometry"][0].last_ba_problem
+    cfg = SlamConfig()
+
+    def solve(p):
+        out, info = bundle_adjust(p, iters=cfg.ba_iters,
+                                  cg_iters=cfg.cg_iters)
+        return out, info, float(reprojection_rmse(out))
+    card = [solve(problem) for _ in range(5)]
+    cpu = solve(problem.to("cpu"))
+    cams0 = card[0][0].cams.cpu()
+    scale = float(cams0.abs().max())
+    spread = max(float((c[0].cams.cpu() - cams0).abs().max())
+                 for c in card) / scale
+    cost_spread = max(abs(float(c[1]["final_cost"])
+                          - float(card[0][1]["final_cost"])) for c in card)
+    vs_cpu = float((cams0 - cpu[0].cams).abs().max()) / scale
+    cost_c, cost_h = float(card[0][1]["final_cost"]), float(
+        cpu[1]["final_cost"])
+    walls, med = median_wall_ms(lambda: solve(problem))
+    n_obs = int(problem.obs_mask.sum())
+    print(f"window BA ({problem.cams.shape[0]} cameras, "
+          f"{problem.points.shape[0]} padded points, {n_obs} of "
+          f"{problem.obs_mask.numel()} observations; {cfg.ba_iters} LM x "
+          f"{cfg.cg_iters} CG): 5 solves on the card spread "
+          f"{spread:.3g} of the largest camera value and {cost_spread:.6g} "
+          f"in cost ({cost_c:.6g}); card vs CPU: cameras {vs_cpu:.3g}, cost "
+          f"{cost_c:.6g} vs {cost_h:.6g}, RMSE {card[0][2]:.6f} vs "
+          f"{cpu[2]:.6f} px; one solve {med:.2f} ms (median of {walls}) "
+          f"on {label}")
+    check(abs(cost_c - cost_h) <= 1e-3 * cost_h
+          and abs(card[0][2] - cpu[2]) <= 1e-3 * cpu[2] and vs_cpu <= 1e-2,
+          "the window BA on the card disagrees with the CPU solve")
+    check(spread == 0 and cost_spread == 0,
+          "the window BA on the card is not deterministic")
+
+    # ---- a profile of one keyframe's process_frame -----------------------
+    slam = IncrementalSlam(traj["K"], SlamConfig(enable_loop_closure=False))
+    slam.process_frame(traj["images"][0])
+    for i, im in enumerate(traj["images"][1:], 1):
+        out = profile_call(f"slam process_frame (frame {i}, a keyframe) on "
+                           f"{label}", lambda: slam.process_frame(im),
+                           keep=lambda o: o["is_keyframe"])
+        if out["is_keyframe"]:
+            print(f"  its stages, ms: {out['ms']}")
+            break
+    return {"launches": launches, "errs": errs, "times": times,
+            "runs": {k: r for k, (_, r) in runs.items()}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -402,6 +652,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from accelerated_features_tpu_torch import XFeat, xfeat_forward
+    from accelerated_features_tpu_torch.apps.eval_slam import device_label
     from accelerated_features_tpu_torch.models.backbone import (
         input_norm, stem_unfused)
     from accelerated_features_tpu_torch.models.lighterglue import \
@@ -1077,6 +1328,9 @@ def main() -> int:
     # ---- the pose path ------------------------------------------------------
     pose_phase()
 
+    # ---- the SfM/SLAM path --------------------------------------------------
+    slam = slam_phase(root, counters)
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
@@ -1293,11 +1547,21 @@ def main() -> int:
     profile_call("match_xfeat_star",
                  lambda: xf.match_xfeat_star(imgs[0], imgs[1]))
 
+    # kernels A, B and C on the SLAM path: their launches in each tracker
+    # run, and their check and times at 640x480, K=2048
+    for row in rows:
+        name = row["name"]
+        if name in slam["times"]:
+            ms, pms, (bms, by) = slam["times"][name]
+            row.update({
+                "launches_slam_odometry": slam["launches"]["odometry"][name],
+                "launches_slam_loop_closure":
+                    slam["launches"]["loop_closure"][name],
+                "max_abs_err_640x480": slam["errs"][name],
+                "ms_640x480": ms, "plain_ms_640x480": pms,
+                "bound_ms_640x480": bms, "bound_by_640x480": by})
     print(json.dumps({"kernels": rows}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(device_label(dev))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -530,3 +530,127 @@ def test_matmuls_ignore_the_tf32_flag(dev):
     assert len(off[2][0]) > 0
     for a, b in zip(on[2], off[2]):
         np.testing.assert_array_equal(a, b)
+
+
+def _ba_problem(dev, seed=0, n_cams=6, n_pts=300):
+    """A seeded BA problem on `dev`: cameras on an arc around a point cloud,
+    1 px noise, a perturbed start, cameras 0 and 1 frozen (no free
+    gauge)."""
+    from accelerated_features_tpu_torch.sfm import BAProblem, project
+    rng = np.random.default_rng(seed)
+    K = torch.tensor([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    X = torch.tensor(rng.uniform([-2, -2, 6], [2, 2, 10], (n_pts, 3)),
+                     dtype=torch.float32)
+    cams = torch.zeros((n_cams, 6))
+    cams[:, 1] = 0.1 * (torch.arange(n_cams) - n_cams / 2)
+    cams[:, 3] = 0.5 * (torch.arange(n_cams) - n_cams / 2)
+    oc = torch.arange(n_cams).repeat_interleave(n_pts)
+    op = torch.arange(n_pts).repeat(n_cams)
+    uv = project(cams[oc], X[op], K)
+    uv = uv + torch.tensor(rng.normal(0, 1.0, tuple(uv.shape)),
+                           dtype=torch.float32)
+    start = cams + torch.tensor(rng.normal(0, 0.05, (n_cams, 6)),
+                                dtype=torch.float32)
+    start[:2] = cams[:2]
+    fixed = torch.zeros(n_cams, dtype=torch.bool)
+    fixed[:2] = True
+    return BAProblem(
+        cams=start, points=X + torch.tensor(
+            rng.normal(0, 0.1, (n_pts, 3)), dtype=torch.float32),
+        K=K, obs_cam=oc, obs_pt=op, obs_uv=uv,
+        obs_mask=torch.ones(len(oc), dtype=torch.bool),
+        fixed_cams=fixed).to(dev)
+
+
+def _ring(n=10):
+    """A pose graph: keyframes on a circle, noisy starts, odometry edges
+    and one loop edge."""
+    from accelerated_features_tpu_torch.sfm import (PoseGraph, se3_compose,
+                                                    se3_inverse)
+    rng = np.random.default_rng(6)
+    th = torch.linspace(0, 1.6 * np.pi, n)
+    gt = torch.zeros((n, 6))
+    gt[:, 1] = -th
+    gt[:, 3] = 3 * torch.sin(th)
+    gt[:, 5] = 3 * (torch.cos(th) - 1)
+    g = PoseGraph.empty()
+    for i in range(n):
+        noise = 0 if i == 0 else rng.normal(0, 0.03, 6)
+        g.add_keyframe(gt[i].numpy() + noise)
+    for i, j in [(i, i + 1) for i in range(n - 1)] + [(0, n - 1)]:
+        g.add_edge(i, j, se3_compose(gt[j], se3_inverse(gt[i])).numpy())
+    return g
+
+
+def test_ba_and_pose_graph_ignore_the_tf32_flag(dev):
+    """With `allow_tf32` turned on by the caller, `bundle_adjust` and
+    `optimize_pose_graph` give, bit for bit, their results with it off
+    (TF32 products would move them by ~1e-3 relative), and the flag reads
+    True after."""
+    from accelerated_features_tpu_torch.sfm import (bundle_adjust,
+                                                    optimize_pose_graph)
+    p = _ba_problem(dev)
+    g = _ring()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            solved, info = bundle_adjust(p, iters=8, cg_iters=25)
+            out[flag] = (solved.cams.cpu(), info["final_cost"].cpu(),
+                         optimize_pose_graph(g, device=dev)[0])
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (c0, cost0, g0), (c1, cost1, g1) = out[False], out[True]
+    assert torch.equal(c1, c0) and torch.equal(cost1, cost0)
+    assert np.array_equal(g1, g0)
+
+
+def test_bundle_adjust_is_deterministic_on_the_card(dev):
+    """Two solves of one problem are equal bit for bit: the segment sums
+    gather through fixed tables instead of adding through atomics."""
+    from accelerated_features_tpu_torch.sfm import bundle_adjust
+    p = _ba_problem(dev)
+    a, ia = bundle_adjust(p, iters=6, cg_iters=25)
+    b, ib = bundle_adjust(p, iters=6, cg_iters=25)
+    assert torch.equal(a.cams, b.cams) and torch.equal(a.points, b.points)
+    assert torch.equal(ia["final_cost"], ib["final_cost"])
+
+
+def test_bundle_adjust_reads_back_once(dev):
+    """The LM and CG loops read nothing back: under the sync debug mode
+    the whole solve synchronizes once, when `segment_tables` reads its two
+    table widths."""
+    import warnings
+
+    from accelerated_features_tpu_torch.sfm import bundle_adjust
+    p = _ba_problem(dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            solved, info = bundle_adjust(p, iters=4, cg_iters=10)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert float(info["final_cost"]) < float(info["initial_cost"])
+
+
+def test_bundle_adjust_on_the_card_matches_the_cpu(dev):
+    """The same problem on the card and on the CPU: the final cost within
+    1e-4, the cameras within 1e-4 of their largest value (the gauge is
+    fixed, so the solution is unique)."""
+    from accelerated_features_tpu_torch.sfm import (bundle_adjust,
+                                                    reprojection_rmse)
+    p = _ba_problem(dev)
+    got, ginfo = bundle_adjust(p, iters=10, cg_iters=30)
+    want, winfo = bundle_adjust(p.to("cpu"), iters=10, cg_iters=30)
+    assert float(ginfo["final_cost"]) == pytest.approx(
+        float(winfo["final_cost"]), rel=1e-4)
+    assert (got.cams.cpu() - want.cams).abs().max() <= \
+        1e-4 * want.cams.abs().max()
+    assert float(reprojection_rmse(got)) < 1.5
