@@ -41,6 +41,12 @@
 // the keys are also split over blockIdx.y, about one block an SM: each
 // split writes its unnormalised (m, l, acc) and a small second kernel
 // merges them. With one split the block writes the output itself.
+//
+// For training, the caller may pass `lse` (B,Nq): the row log-sum-exp of
+// the masked, scaled scores in natural log, which the backward
+// (attention_bwd.cu) recomputes the probabilities from. The block writes it
+// with one split, the merge with more; a null `lse` writes nothing and
+// leaves the inference launch as it was.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,6 +60,7 @@
 #define STAGES 3
 #define THREADS (32 * WARPS)
 #define NEG (-1e9f)
+#define LN2 0.6931471805599453f
 
 // 2^x on the special-function unit; results below 2^-126 are 0
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -111,7 +118,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                         const uint8_t* __restrict__ mask,
                         float* __restrict__ part_acc,
                         float* __restrict__ part_ml, float* __restrict__ out,
-                        int Nq, int Nk, float scale, int tiles_per_split) {
+                        float* __restrict__ lse, int Nq, int Nk, float scale,
+                        int tiles_per_split) {
   constexpr int LD = D + PAD;  // row stride of Q, K and V, = 4 mod 32
   constexpr int NO = D / 8;    // 8-column MMA tiles of the output
   extern __shared__ __align__(16) float smem[];
@@ -319,13 +327,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       part_ml[(base + row) * 2] = m[h];
       part_ml[(base + row) * 2 + 1] = l[h];
     }
+    if (whole && lse != nullptr && t == 0)
+      lse[(size_t)b * Nq + row] = (m[h] + log2f(fmaxf(l[h], 1e-30f))) * LN2;
   }
 }
 
-// out = sum_s w_s acc_s / sum_s w_s l_s with w_s = 2^(m_s - max_s m_s)
+// out = sum_s w_s acc_s / sum_s w_s l_s with w_s = 2^(m_s - max_s m_s);
+// lse (may be null) = (max_s m_s + log2 sum_s w_s l_s) * ln 2
 __global__ void attn_merge_kernel(const float* __restrict__ part_acc,
                                   const float* __restrict__ part_ml,
-                                  float* __restrict__ out, int B, int Nq,
+                                  float* __restrict__ out,
+                                  float* __restrict__ lse, int B, int Nq,
                                   int D, int splits) {
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long)B * Nq * D) return;
@@ -343,14 +355,16 @@ __global__ void attn_merge_kernel(const float* __restrict__ part_acc,
     num = fmaf(w, part_acc[r * D + c], num);
   }
   out[t] = num / fmaxf(den, 1e-30f);
+  if (lse != nullptr && c == 0)
+    lse[br] = (m_all + log2f(fmaxf(den, 1e-30f))) * LN2;
 }
 
 template <int D>
 static cudaError_t launch_partial(const float* q, const float* k,
                                   const float* v, const uint8_t* mask,
                                   float* part_acc, float* part_ml, float* out,
-                                  int B, int Nq, int Nk, float scale,
-                                  int splits, cudaStream_t s) {
+                                  float* lse, int B, int Nq, int Nk,
+                                  float scale, int splits, cudaStream_t s) {
   const int n_tiles = (Nk + BN - 1) / BN;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   if ((n_tiles + tiles_per_split - 1) / tiles_per_split != splits)
@@ -362,34 +376,35 @@ static cudaError_t launch_partial(const float* q, const float* k,
   if (err != cudaSuccess) return err;
   dim3 grid((Nq + BM - 1) / BM, splits, B);
   attn_partial_kernel<D><<<grid, THREADS, bytes, s>>>(
-      q, k, v, mask, part_acc, part_ml, out, Nq, Nk, scale, tiles_per_split);
+      q, k, v, mask, part_acc, part_ml, out, lse, Nq, Nk, scale,
+      tiles_per_split);
   return cudaGetLastError();
 }
 
 // q (B,Nq,D), k and v (B,Nk,D), out (B,Nq,D) float32; mask (B,Nk) bytes or
 // null; part_acc (B,splits,Nq,D) and part_ml (B,splits,Nq,2) scratch, unused
-// (may be null) when splits is 1.
+// (may be null) when splits is 1; lse (B,Nq) float32 or null.
 extern "C" int attention_forward(const float* q, const float* k,
                                  const float* v, const uint8_t* mask,
                                  float* part_acc, float* part_ml, float* out,
-                                 int B, int Nq, int Nk, int D, float scale,
-                                 int splits, void* stream) {
+                                 float* lse, int B, int Nq, int Nk, int D,
+                                 float scale, int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B < 1 || Nq < 1 || Nk < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   switch (D) {
     case 32:
-      err = launch_partial<32>(q, k, v, mask, part_acc, part_ml, out, B, Nq,
-                               Nk, scale, splits, s);
+      err = launch_partial<32>(q, k, v, mask, part_acc, part_ml, out, lse, B,
+                               Nq, Nk, scale, splits, s);
       break;
     case 64:
-      err = launch_partial<64>(q, k, v, mask, part_acc, part_ml, out, B, Nq,
-                               Nk, scale, splits, s);
+      err = launch_partial<64>(q, k, v, mask, part_acc, part_ml, out, lse, B,
+                               Nq, Nk, scale, splits, s);
       break;
     case 96:
-      err = launch_partial<96>(q, k, v, mask, part_acc, part_ml, out, B, Nq,
-                               Nk, scale, splits, s);
+      err = launch_partial<96>(q, k, v, mask, part_acc, part_ml, out, lse, B,
+                               Nq, Nk, scale, splits, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -397,7 +412,7 @@ extern "C" int attention_forward(const float* q, const float* k,
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long n = (long)B * Nq * D;
   attn_merge_kernel<<<(int)((n + 255) / 256), 256, 0, s>>>(
-      part_acc, part_ml, out, B, Nq, D, splits);
+      part_acc, part_ml, out, lse, B, Nq, D, splits);
   return (int)cudaGetLastError();
 }
 

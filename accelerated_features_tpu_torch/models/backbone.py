@@ -1,4 +1,5 @@
-"""XFeat backbone and heads in PyTorch (inference, folded BatchNorm).
+"""XFeat backbone and heads in PyTorch: inference with folded BatchNorm,
+and training with batch statistics.
 
 Counterpart of the JAX package's `models/backbone.py`: the same five conv
 blocks with the avg-pool skip, the bilinear pyramid fusion, the
@@ -6,11 +7,16 @@ reliability head and the keypoint head on the 8x8 space-to-depth of the
 normalized image. Inside it runs NCHW with `F.conv2d`; at its edges it
 keeps the JAX layouts: images (B,H,W,C) in, NHWC `feats`, `logits` and
 `heat` out.
+
+`train=True` normalizes every affine-free BatchNorm with the batch mean
+and biased variance and returns, per layer, the batch mean and unbiased
+variance for the trainer's running-average update (JAX
+`backbone._basic_layer`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +24,7 @@ from torch import nn
 
 from ..ops.cuda.stem_fused import stem_fused
 from ..ops.precision import full_fp32_convs
+from .params import BN_EPS
 
 IN_EPS = 1e-5  # torch InstanceNorm2d default eps
 
@@ -42,13 +49,44 @@ def _conv(x: torch.Tensor, p: Dict[str, torch.Tensor],
                     padding=p["w"].shape[-1] // 2)
 
 
-def _basic(p: Dict[str, torch.Tensor], x: torch.Tensor,
-           stride: int = 1) -> torch.Tensor:
-    """Conv + folded BatchNorm + ReLU."""
-    if "b" not in p:
+def _batch_norm(x: torch.Tensor, dims: Tuple[int, ...],
+                stats_out: Optional[list],
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Affine-free BatchNorm with batch statistics over `dims`: mean and
+    biased variance in float32, over the rows where `valid` holds when it
+    is given, applied in x's dtype (the JAX package's arithmetic); appends
+    {mean, unbiased var} to `stats_out`."""
+    xf = x.float()
+    if valid is None:
+        mean = xf.mean(dim=dims)
+        var = xf.var(dim=dims, unbiased=False)
+        n = float(xf.numel() // xf.shape[1 if xf.dim() == 4 else -1])
+        unbiased = var * n / max(n - 1.0, 1.0)
+    else:
+        m = valid[..., None].float()
+        nt = m.sum().clamp_min(1.0)
+        mean = (xf * m).sum(dim=dims) / nt
+        var = (m * (xf - mean) ** 2).sum(dim=dims) / nt
+        unbiased = var * nt / (nt - 1.0).clamp_min(1.0)
+    if stats_out is not None:
+        stats_out.append({"mean": mean.detach(), "var": unbiased.detach()})
+    shape = [1, -1, 1, 1] if x.dim() == 4 else [-1]
+    inv = torch.rsqrt(var + BN_EPS)
+    return (x - mean.reshape(shape).to(x.dtype)) * inv.reshape(shape).to(
+        x.dtype)
+
+
+def _basic(p: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
+           stats_out: Optional[list] = None) -> torch.Tensor:
+    """Conv + BatchNorm + ReLU: the BatchNorm folded into the conv's bias
+    (inference), or with batch statistics when `stats_out` is a list
+    (training)."""
+    if "b" in p:
+        return F.relu(_conv(x, p, stride))
+    if stats_out is None:
         raise ValueError("inference needs BatchNorm folded into the conv "
                          "biases (models.params.fold_batchnorm)")
-    return F.relu(_conv(x, p, stride))
+    return F.relu(_batch_norm(_conv(x, p, stride), (0, 2, 3), stats_out))
 
 
 def input_norm(x: torch.Tensor) -> torch.Tensor:
@@ -65,80 +103,107 @@ def _upsample(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     return F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
 
 
-def stem_unfused(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+def stem_unfused(params: Dict[str, Any], x: torch.Tensor,
+                 stats: Optional[Dict[str, list]] = None) -> torch.Tensor:
     """block1 and the avg-pool skip as the backbone's own convs, in the
-    dtype of the normalized gray image x (B,1,H,W) -> (B,24,H/4,W/4)."""
+    dtype of the normalized gray image x (B,1,H,W) -> (B,24,H/4,W/4).
+    With `stats`, block1 normalizes with batch statistics and records
+    them under stats["block1"]."""
     x1 = x
+    sub = None if stats is None else stats.setdefault("block1", [])
     for p, s in zip(params["block1"], BLOCK_STRIDES["block1"]):
-        x1 = _basic(p, x1, s)
+        x1 = _basic(p, x1, s, sub)
     return x1 + _conv(F.avg_pool2d(x, 4, 4), params["skip1"])
 
 
 def xfeat_forward(params: Dict[str, Any], x: torch.Tensor, *,
                   compute_dtype: torch.dtype = torch.float32,
-                  fused_stem: bool = False):
+                  fused_stem: bool = False, train: bool = False):
     """(B,H,W,C) float images in [0,1], H and W divisible by 32 ->
     feats (B,H/8,W/8,64), logits (B,H/8,W/8,65), heat (B,H/8,W/8,1), all
-    in `compute_dtype`.
+    in `compute_dtype`; with `train=True` also the BatchNorm batch
+    statistics, {block: [{mean, var}, ...]} (var unbiased), as the JAX
+    package returns them.
 
-    `compute_dtype`: float32 or bfloat16. The input is normalized in
-    float32 and then cast; every conv runs in that dtype.
+    `compute_dtype`: float32 or bfloat16 (or float64, to check the
+    training arithmetic on the CPU). The input is normalized in float32 and
+    then cast; every conv runs in that dtype; BatchNorm statistics are
+    float32 (as in the JAX package).
     `fused_stem`: run block1 and the skip as the fused stem kernel
     (`ops/cuda/stem_fused.py`) on CUDA tensors, and as its plain version on
-    CPU tensors. An explicit keyword only; no environment variable sets
-    it."""
-    if compute_dtype not in (torch.float32, torch.bfloat16):
+    CPU tensors; inference only. An explicit keyword only; no environment
+    variable sets it."""
+    if compute_dtype not in (torch.float32, torch.bfloat16, torch.float64):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{compute_dtype}")
+    if fused_stem and train:
+        raise ValueError("fused_stem=True requires inference (train=False) "
+                         "and BatchNorm folded into conv biases "
+                         "(models.params.fold_batchnorm)")
+    stats: Optional[Dict[str, List]] = {} if train else None
+
+    def block(name, y, strides):
+        sub = None if stats is None else stats.setdefault(name, [])
+        for p, s in zip(params[name], strides):
+            y = _basic(p, y, s, sub)
+        return y
+
     with full_fp32_convs():
-        x = input_norm(x.float()).to(compute_dtype)
+        # the input normalization carries no gradient (JAX: stop_gradient)
+        x = input_norm(x.float()).detach().to(compute_dtype)
 
         # stem_fused raises on unfolded BatchNorm
-        y = stem_fused(params, x) if fused_stem else stem_unfused(params, x)
+        y = stem_fused(params, x) if fused_stem else \
+            stem_unfused(params, x, stats)
         outs = {}
         for name in ("block2", "block3", "block4", "block5"):
-            for p, s in zip(params[name], BLOCK_STRIDES[name]):
-                y = _basic(p, y, s)
-            outs[name] = y
+            y = outs[name] = block(name, y, BLOCK_STRIDES[name])
 
         x3 = outs["block3"]
         hw = (x3.shape[2], x3.shape[3])
         fused = x3 + _upsample(outs["block4"], hw) + _upsample(outs["block5"],
                                                                hw)
-        for p in params["block_fusion"][:-1]:
-            fused = _basic(p, fused)
+        fused = block("block_fusion", fused, [1, 1])
         feats = _conv(fused, params["block_fusion"][-1])
 
-        h = feats
-        for p in params["heatmap_head"][:-1]:
-            h = _basic(p, h)
+        h = block("heatmap_head", feats, [1, 1])
         heat = torch.sigmoid(_conv(h, params["heatmap_head"][-1]))
 
         # channel = 8*dy + dx, the JAX package's space_to_depth order
-        k = F.pixel_unshuffle(x, 8)
-        for p in params["keypoint_head"][:-1]:
-            k = _basic(p, k)
+        k = block("keypoint_head", F.pixel_unshuffle(x, 8), [1, 1, 1])
         logits = _conv(k, params["keypoint_head"][-1])
 
     def nhwc(t):
         return t.permute(0, 2, 3, 1).contiguous()
 
+    if train:
+        return nhwc(feats), nhwc(logits), nhwc(heat), stats
     return nhwc(feats), nhwc(logits), nhwc(heat)
 
 
-def fine_matcher_forward(params: Dict[str, Any],
-                         x: torch.Tensor) -> torch.Tensor:
+def fine_matcher_forward(params: Dict[str, Any], x: torch.Tensor, *,
+                         train: bool = False,
+                         valid: Optional[torch.Tensor] = None):
     """Fine-matcher MLP 128 -> 512 x4 -> 64 on (..., 128) concatenated
-    descriptor pairs (inference: BatchNorm folded into the four hidden
-    layers). Full float32 on the card inside `full_fp32_matmuls`, which
-    `ops.refine.refine_matches` enters."""
+    descriptor pairs. Inference: BatchNorm folded into the four hidden
+    layers. `train=True`: BatchNorm1d with batch statistics over every
+    leading dimension, only the rows where `valid` (...) holds when it is
+    given; returns (logits, [{mean, var}] x4), var unbiased, as the JAX
+    package does. Full float32 on the card inside `full_fp32_matmuls`,
+    which `ops.refine.refine_matches` and the trainer enter."""
     mlp = params["fine_matcher"]
-    if any("mean" in layer for layer in mlp):
+    if not train and any("mean" in layer for layer in mlp):
         raise ValueError("inference needs BatchNorm folded into the fine "
                          "matcher (models.params.fold_batchnorm)")
+    stats: Optional[list] = [] if train else None
+    dims = tuple(range(x.dim() - 1))
     for layer in mlp[:-1]:
-        x = F.relu(F.linear(x, layer["w"], layer["b"]))
-    return F.linear(x, mlp[-1]["w"], mlp[-1]["b"])
+        x = F.linear(x, layer["w"], layer["b"])
+        if train:
+            x = _batch_norm(x, dims, stats, valid)
+        x = F.relu(x)
+    x = F.linear(x, mlp[-1]["w"], mlp[-1]["b"])
+    return (x, stats) if train else x
 
 
 class XFeatModel(nn.Module):

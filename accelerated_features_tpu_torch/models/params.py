@@ -12,7 +12,8 @@ tree keeps the JAX package's nesting:
 
 BatchNorm is folded on the numpy tree exactly as the JAX package folds it,
 then `params_from_jax` turns the tree into torch tensors in torch's own
-layouts: conv weights HWIO -> OIHW, linear weights (in, out) -> (out, in).
+layouts: conv weights HWIO -> OIHW, linear weights (in, out) -> (out, in);
+`params_to_jax` turns them back.
 
 `init_xfeat_params` draws a fresh tree in that layout with the JAX
 package's shapes and U(-b, b) bounds (torch's default kaiming-uniform
@@ -22,6 +23,7 @@ scheme), from a `torch.Generator`: the values differ from `jax.random`'s.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -187,13 +189,45 @@ def params_from_jax(tree: Any) -> Any:
     raise TypeError(f"unexpected parameter node {type(tree).__name__}")
 
 
+def _leaf_to_jax(key: str, t) -> np.ndarray:
+    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+    if key == "w" and a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    elif key == "w" and a.ndim == 2:
+        a = a.T  # (out, in) -> (in, out)
+    return np.array(a, order="C")  # 0-d stays 0-d
+
+
+def params_to_jax(tree: Any) -> Any:
+    """The inverse of `params_from_jax`: the port's tree of tensors (any
+    device) -> the JAX package's layout, numpy leaves (conv weights HWIO,
+    linear weights (in, out)); BatchNorm stats and other leaves as they
+    are."""
+    if isinstance(tree, Mapping):
+        return {k: (_leaf_to_jax(k, v) if not isinstance(v, (Mapping, list,
+                                                              tuple))
+                    else params_to_jax(v))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_jax(v) for v in tree]
+    raise TypeError(f"unexpected parameter node {type(tree).__name__}")
+
+
 def load_params(weights: Union[str, Mapping[str, Any], None],
                 fold_bn: bool = True) -> Dict[str, Any]:
-    """`.npz` path, JAX-layout numpy tree, or None for a random tree from
+    """`.npz` path, a training checkpoint directory (its newest
+    checkpoint), JAX-layout numpy tree, or None for a random tree from
     `init_xfeat_params` (seed 0) -> the port's tensor tree (BatchNorm
     folded unless `fold_bn=False`)."""
     if weights is None:
         tree = init_xfeat_params()
+    elif isinstance(weights, str) and os.path.isdir(weights):
+        from ..utils.checkpoint import latest_checkpoint
+        path = latest_checkpoint(weights)
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint in {weights}")
+        tree = load_npz_tree(path)
     elif isinstance(weights, str):
         tree = load_npz_tree(weights)
     else:
@@ -206,8 +240,15 @@ def load_params(weights: Union[str, Mapping[str, Any], None],
 def load_lighterglue_params(weights: Union[str, Mapping[str, Any]]
                             ) -> Dict[str, Any]:
     """LighterGlue matcher `.npz` path (a full train state contributes its
-    `params/` subtree) or JAX-layout numpy tree -> the port's tensor tree.
+    `params/` subtree), a training checkpoint directory (its newest
+    checkpoint) or JAX-layout numpy tree -> the port's tensor tree.
     Linear weights become (out, in); `posenc_wr` keeps its (2, D/2) layout
     and `token_confidence` is carried across unread."""
+    if isinstance(weights, str) and os.path.isdir(weights):
+        from ..utils.checkpoint import latest_checkpoint
+        path = latest_checkpoint(weights)
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint in {weights}")
+        weights = path
     tree = load_npz_tree(weights) if isinstance(weights, str) else weights
     return params_from_jax(tree)

@@ -10,8 +10,10 @@ The compiler's report (`-Xptxas -v`: registers, shared memory and spills
 of every kernel) is kept beside each library as `lib<name>.log`.
 
 Each C entry launches on the stream it is given and returns
-`cudaGetLastError()`; `launch` raises when that is not 0. The kernels have
-no backward: every wrapper calls `refuse_grad` before it launches.
+`cudaGetLastError()`; `launch` raises when that is not 0. Kernels A, B, C
+and E have no backward: their wrappers call `refuse_grad` before they
+launch. Kernel D's gradient is a kernel of its own (`attention_bwd.cu`),
+wired in by `attention._Attention`.
 """
 
 from __future__ import annotations
@@ -118,16 +120,15 @@ def launch(lib: ctypes.CDLL, fn_name: str, *args) -> None:
 
 
 def refuse_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Raise when autograd would record through the kernel: grad mode is
-    on and an input requires grad. The kernels have no backward, and their
-    outputs would be cut from the graph without a word."""
+    """Raise when autograd would record through a kernel that has no
+    backward: grad mode is on and an input requires grad. Its output would
+    be cut from the graph without a word."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in tensors):
         raise RuntimeError(
             f"{kernel} has no backward: an input requires grad while grad "
             f"mode is on. Run it under torch.no_grad() or "
-            f"torch.inference_mode(); the kernels' backward comes with "
-            f"training.")
+            f"torch.inference_mode().")
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,

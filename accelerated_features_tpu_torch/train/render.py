@@ -1,11 +1,14 @@
 """Procedural scene renderer, numpy only: the port's copy of the JAX
-package's `train/render.py` (the functions the SLAM benchmark needs).
+package's `train/render.py` (the functions the SLAM benchmark and the
+trainer's depth-supervised pairs need).
 
 Scenes are textured quads in front of a backdrop, ray-cast per pixel in
 camera coordinates, so a pixel ray is d = K^-1 (u, v, 1) with d_z = 1 and
 the ray parameter is the z-depth. `render_trajectory` renders a smooth
 orbit through one scene with exact intrinsics and world-to-camera poses:
-the ground truth of `apps/eval_slam.py`. Same draws from the same
+the ground truth of `apps/eval_slam.py`; `render_scene_views` renders
+several cameras of one scene with their depth, the trainer's
+depth-supervised pairs. Same draws from the same
 `numpy.random.Generator`, same arithmetic, so the same images as the JAX
 package's renderer.
 """
@@ -157,6 +160,42 @@ def render_view(quads: List[Dict[str, np.ndarray]], K: np.ndarray,
 
     depth = np.where(np.isfinite(zbuf), zbuf, 0.0).astype(np.float32)
     return np.clip(img, 0, 255).astype(np.uint8), depth
+
+
+def render_scene_views(rng: np.random.Generator,
+                       textures: List[np.ndarray],
+                       n_views: int, w: int, h: int,
+                       n_quads: int = 12,
+                       baseline_frac: Tuple[float, float] = (0.08, 0.35)
+                       ) -> Dict[str, list]:
+    """Render `n_views` cameras of one random scene: view 0 looks at the
+    scene centre from the origin, every further view is displaced by a
+    baseline of `baseline_frac` x the distance to the centre and re-aimed
+    at a jittered target. Returns lists images (h,w,3) uint8, depths (h,w)
+    float32, Ks (3,3) and poses (4,4 world-to-camera)."""
+    quads = make_scene(rng, textures, n_quads=n_quads)
+    centers = [q["p0"] + 0.5 * q["e1"] + 0.5 * q["e2"] for q in quads[1:]]
+    center = np.mean(centers, axis=0)
+    K = make_intrinsics(rng, w, h)
+
+    images, depths, Ks, poses = [], [], [], []
+    T0 = look_at_w2c(np.zeros(3), center)
+    dist = np.linalg.norm(center)
+    for vi in range(n_views):
+        if vi == 0:
+            T = T0
+        else:
+            b = rng.uniform(*baseline_frac) * dist
+            direction = _unit(np.concatenate(
+                [rng.normal(size=2), [0.3 * rng.normal()]]))
+            target = center + rng.normal(scale=0.05 * dist, size=3)
+            T = look_at_w2c(direction * b, target)
+        img, depth = render_view(quads, K, T, h, w)
+        images.append(img)
+        depths.append(depth)
+        Ks.append(K.copy())
+        poses.append(T)
+    return {"images": images, "depths": depths, "Ks": Ks, "poses": poses}
 
 
 def render_trajectory(rng: np.random.Generator,

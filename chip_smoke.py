@@ -15,8 +15,9 @@ Run from the root of a checkout. In order, it
      K1 != K2 off the row panel; attention at every head width with a
      ragged last key tile, a masked tail and a key range that ends inside a
      split; descriptor sampling of a raw map with zero pixels and taps off
-     the map), and shows that every kernel's wrapper refuses an input that
-     requires grad while grad mode is on;
+     the map), and shows that the wrappers of A, B, C and E refuse an
+     input that requires grad while grad mode is on, and that D records
+     its call and runs its backward kernel;
   3. drives the three matchers end to end with the repository's trained
      extractor `artifacts/run_md_ckpt13250.npz` and trained matcher
      `artifacts/lighterglue_ft_ckpt7791.npz`: `detectAndCompute` on a batch
@@ -39,7 +40,15 @@ Run from the root of a checkout. In order, it
      closure off and on (a loop must close, the window BA must end under
      2 px, loop closure must not worsen ATE); one window BA on the card
      against the CPU, its run-to-run spread, and a profile of a keyframe;
-  6. times each kernel against its plain version, its bound and, where one
+  6. drives the training path (`train_phase`): the XFeat trainer at batch
+     10, 800x608 (step 1's loss and gradients against the CPU path, 5
+     steps on a fixed batch with the loss falling, a checkpoint resumed
+     and loaded into `XFeat`, `train.run.main`), the LighterGlue trainer
+     (`lighterglue_run.main`, 3 steps at batch 8, top_k 512, from the
+     committed state; kernels A, B, D and D's backward counted; a step's
+     gradients against the CPU path), and D's backward alone against its
+     plain version and float64 autograd;
+  7. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function, and
      profiles one call of each matcher.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
@@ -633,6 +642,319 @@ def slam_phase(root: Path, counters: dict) -> dict:
             "runs": {k: r for k, (_, r) in runs.items()}}
 
 
+def grads_agree(got, ref, zero_grad=()):
+    """Two gradient trees of the port (any devices) leaf by leaf: ((worst
+    max |diff| / the leaf's max |g|, leaf), (worst ||diff|| / ||g||,
+    leaf)). Leaves in `zero_grad` are zero in exact arithmetic (rounding
+    noise) and count as the share of the largest gradient they reach on
+    either side, times 100."""
+    import numpy as np
+
+    from accelerated_features_tpu_torch.models.params import params_to_jax
+
+    def leaves(t, prefix=""):
+        if isinstance(t, dict):
+            return {k2: v2 for k, v in t.items()
+                    for k2, v2 in leaves(v, f"{prefix}{k}/").items()}
+        if isinstance(t, (list, tuple)):
+            return {k2: v2 for i, v in enumerate(t)
+                    for k2, v2 in leaves(v, f"{prefix}{i}/").items()}
+        return {prefix[:-1]: np.asarray(t, np.float64)}
+    a, b = leaves(params_to_jax(got)), leaves(params_to_jax(ref))
+    top = max(float(np.abs(v).max()) for v in b.values())
+    worst_max, worst_l2 = (0.0, ""), (0.0, "")
+    for k, r in b.items():
+        if k in zero_grad:
+            rel = 100 * max(float(np.abs(r).max()),
+                            float(np.abs(a[k]).max())) / top
+            worst_max = max(worst_max, (rel, k))
+            worst_l2 = max(worst_l2, (rel, k))
+            continue
+        if not np.abs(r).any():
+            rel = float(np.abs(a[k]).any())
+            worst_max = max(worst_max, (rel, k))
+            worst_l2 = max(worst_l2, (rel, k))
+            continue
+        worst_max = max(worst_max, (float(np.abs(a[k] - r).max())
+                                    / float(np.abs(r).max()), k))
+        worst_l2 = max(worst_l2, (float(np.linalg.norm(a[k] - r))
+                                  / float(np.linalg.norm(r)), k))
+    return worst_max, worst_l2
+
+
+def train_phase(root: Path, counters: dict) -> dict:
+    """The training path on the card, at the reference recipe's width.
+
+    (a) The XFeat trainer: one batch of 10 pairs at 800x608, 4 synthetic
+    pairs (`make_pair` over the holdout PNGs, read by `read_png` through
+    `ImageFolderSource` on a flat directory of links) and 6 depth-supervised
+    pairs rendered once by `train/render.py` through `spvs_coarse` and
+    `spvs_full`, 1024 correspondences a pair, lr 3e-4, from
+    `init_xfeat_params`. Step 1's loss and every gradient leaf against the
+    port's CPU path on the same batch and parameters (cuDNN's TF32 off
+    through `full_fp32_convs`); 5 `train_step`s on that fixed batch, the
+    loss falling; a checkpoint saved, resumed and loaded into
+    `XFeat(weights=dir)`, whose `match_xfeat` runs on the card; and
+    `train/run.py`'s `main` for 2 steps of its own batches. (b) The
+    LighterGlue trainer: `lighterglue_run.main` for 3 steps at batch 8,
+    top_k 512, 800x608, resumed from the committed
+    `lighterglue_ft_ckpt7791.npz` with the frozen `run_md_ckpt13250.npz`
+    (kernels A and B extract, kernel D forward and backward in every
+    attention, counted), then one step's gradients against the CPU path on
+    the same batch. (c) Kernel D's backward alone against its plain version
+    and float64 autograd of `attention_reference`, bit-equal over two runs,
+    at LighterGlue training's shape, with three heads of 32, and at
+    Nq=Nk=4096. Returns what the kernel rows need."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch import XFeat
+    from accelerated_features_tpu_torch.models.params import (
+        init_xfeat_params, load_lighterglue_params, load_params,
+        params_from_jax)
+    from accelerated_features_tpu_torch.ops.cuda import attention as D
+    from accelerated_features_tpu_torch.ops.resize import to_unit_float
+    from accelerated_features_tpu_torch.train import lighterglue_run as lgr
+    from accelerated_features_tpu_torch.train import optim
+    from accelerated_features_tpu_torch.train import run as xrun
+    from accelerated_features_tpu_torch.train import trainer as tt
+    from accelerated_features_tpu_torch.train.augmentation import (AugConfig,
+                                                                   make_pair)
+    from accelerated_features_tpu_torch.train.megadepth import \
+        ImageFolderSource
+    from accelerated_features_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    from accelerated_features_tpu_torch.utils.imageio import load_textures
+
+    dev = torch.device("cuda")
+    holdout = root / "artifacts" / "rendered_pose_holdout"
+    weights = str(root / "artifacts" / "run_md_ckpt13250.npz")
+    lg_weights = root / "artifacts" / "lighterglue_ft_ckpt7791.npz"
+    out: dict = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        links = tmp / "holdout"
+        links.mkdir()
+        for i, png in enumerate(sorted(holdout.rglob("*.png"))):
+            os.symlink(png, links / f"{i:03d}.png")
+
+        # ---- (a) the XFeat trainer ---------------------------------------
+        t0 = time.time()
+        cfg = tt.TrainConfig(lr=3e-4, use_distill=False,
+                             use_kp_position=True)
+        aug = AugConfig(warp_resolution=(W, H), out_resolution=(W, H))
+        source = ImageFolderSource(str(links), (W, H))
+        pool = torch.from_numpy(source.pool_u8()).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        idx, _ = source.sample_indices(4)
+        synth = xrun.synthetic_batch(
+            gen, to_unit_float(pool[torch.from_numpy(idx).to(dev)]), aug,
+            1024)
+        textures = load_textures(holdout, 16, np.random.default_rng(0))
+        rendered = {k: torch.from_numpy(v).to(dev) for k, v in
+                    xrun.render_depth_pairs(textures, 6, (W, H)).items()}
+        depth = xrun.depth_batch(rendered, torch.arange(6, device=dev), 1024,
+                                 gen)
+        batch = xrun.concat_batches([synth, depth])
+        n_corr = batch["corr_valid"].sum(-1).tolist()
+        print(f"train batch: 4 synthetic + 6 rendered depth pairs at {W}x{H}"
+              f" in {time.time() - t0:.1f} s, correspondences a pair "
+              f"{n_corr}, full-resolution ones "
+              f"{batch['corr_full_valid'].sum(-1).tolist()}")
+        check(min(n_corr) >= 30, f"a training pair has < 30 "
+              f"correspondences: {n_corr}")
+
+        params_cpu = params_from_jax(init_xfeat_params())
+        params = optim.tree_map(lambda t: t.to(dev), params_cpu)
+        loss, (met, _), grads = tt.value_and_grad(params, batch, None, cfg)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss_c, (met_c, _), grads_c = tt.value_and_grad(
+            params_cpu, {k: v.cpu() for k, v in batch.items()}, None, cfg)
+        cpu_s = time.time() - t0
+        # A float32 ReLU whose input lies within rounding of 0 decides
+        # differently on the two devices; its term is one of a weight
+        # gradient's N summed terms, ~1/sqrt(N) of the leaf's largest
+        # entry (N = 1024 rows in the fine matcher: ~3%). So the gate is
+        # 5e-2 of a leaf's max |g| and 1e-2 of its norm; the CPU's own
+        # float32-against-float64 spread is printed beside it.
+        zero = {f"fine_matcher/{i}/b" for i in range(4)}
+        (worst, leaf), (worst2, leaf2) = grads_agree(grads, grads_c, zero)
+        _, _, grads_64 = tt.value_and_grad(
+            optim.tree_map(lambda t: t.double(), params_cpu),
+            {k: (v.cpu().double() if v.is_floating_point() else v.cpu())
+             for k, v in batch.items()}, None, cfg)
+        (own, own_leaf), (own2, own_leaf2) = grads_agree(grads_c, grads_64,
+                                                         zero)
+        print(f"train step 1 on the card against the CPU path ({cpu_s:.1f}"
+              f" s there): loss {float(loss)!r} vs {float(loss_c)!r}, "
+              f"metrics {({k: float(v) for k, v in met.items()})}; worst "
+              f"gradient leaf {leaf} max |diff| {worst:.3g} of its max |g|"
+              f", {leaf2} ||diff|| {worst2:.3g} of ||g||; the CPU's float32 "
+              f"against float64: {own_leaf} {own:.3g}, {own_leaf2} "
+              f"{own2:.3g}")
+        check(abs(float(loss) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+              and worst <= 5e-2 and worst2 <= 1e-2,
+              "the card's training gradients differ from the CPU path's")
+        out["xfeat_grad_worst"] = (worst, leaf, worst2, leaf2, own, own2)
+
+        state = tt.init_train_state(params, cfg)
+        losses, walls = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            state, m = tt.train_step(state, batch, gen, cfg)
+            losses.append(float(m["loss_total"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"5 train steps on one fixed batch: loss {losses}, wall ms "
+              f"{walls}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"the training loss does not fall over 5 steps: {losses}")
+        state = profile_call("train_step B=10 800x608",
+                             lambda: tt.train_step(state, batch, gen,
+                                                   cfg)[0])
+        out["xfeat_step_ms"] = walls
+
+        ck = tmp / "xfeat_ckpt"
+        save_checkpoint(str(ck), state, int(state["step"]))
+        back = restore_checkpoint(str(ck / f"ckpt_{int(state['step']):08d}"
+                                          ".npz"), tt.init_train_state(
+            optim.tree_map(lambda t: t.to(dev),
+                           params_from_jax(init_xfeat_params())), cfg))
+        same = all(torch.equal(a, b) for a, b in zip(
+            optim.tree_leaves(back), optim.tree_leaves(state)))
+        check(same and int(back["step"]) == 6,
+              "the resumed train state differs from the saved one")
+        xf_t = XFeat(weights=str(ck), top_k=TOP_K, detection_threshold=0.012,
+                     device="cuda")
+        img = (np.asarray(source.pool[0]).mean(-1)).astype(np.uint8)
+        mk0, mk1 = xf_t.match_xfeat(img, np.roll(img, (16, 24), (0, 1)))
+        print(f"XFeat(weights=<checkpoint dir>) after 6 steps: match_xfeat "
+              f"{len(mk0)} matches on the card")
+        check(len(mk0) > 0, "the trained checkpoint matches nothing")
+
+        history = xrun.main([
+            "--ckpt_save_path", str(tmp / "run_ckpt"),
+            "--synthetic_root_path", str(links), "--batch_size", "10",
+            "--n_steps", "2", "--rendered_pairs", "2",
+            "--save_ckpt_every", "2"])
+        check(len(history) == 2 and all(np.isfinite(h["loss_total"])
+                                        for h in history),
+              f"train.run main did not take 2 steps: {history}")
+        print(f"train.run main: "
+              f"{[(h['step'], h['loss_total']) for h in history]}")
+
+        # ---- (b) the LighterGlue trainer ----------------------------------
+        lg_ck = tmp / "lg_ckpt"
+        lg_ck.mkdir()
+        shutil.copy(lg_weights, lg_ck / "ckpt_00007791.npz")
+        for fn in counters.values():
+            fn.launches = 0
+        D.attention_backward.launches = 0
+        history = lgr.main([
+            "--synthetic_root_path", str(links), "--ckpt_save_path",
+            str(lg_ck), "--xfeat_weights", weights, "--batch_size", "8",
+            "--top_k", "512", "--n_steps", "7794"])
+        per_step = {k: fn.launches / 3 for k, fn in counters.items()}
+        per_step["attention_backward"] = D.attention_backward.launches / 3
+        print(f"lighterglue_run: steps {[h['step'] for h in history]}, "
+              f"loss {[h['loss'] for h in history]}, wall s "
+              f"{[h['wall_s'] for h in history]}; launches a step "
+              f"{per_step}")
+        check([h["step"] for h in history] == [7792, 7793, 7794]
+              and all(np.isfinite(h["loss"]) for h in history),
+              "lighterglue_run did not take its 3 steps from step 7791")
+        check(per_step["attention"] > 0 and per_step["attention_backward"] > 0
+              and per_step["detect_fused"] > 0 and per_step["bicubic"] > 0,
+              f"a kernel of the LighterGlue training step was not launched: "
+              f"{per_step}")
+        out["lg_launches"] = {k: int(v * 3) for k, v in per_step.items()}
+        out["lg_step_s"] = [h["wall_s"] for h in history]
+
+        lg_params = optim.tree_map(lambda t: t.to(dev),
+                                   load_lighterglue_params(str(lg_weights)))
+        xparams = optim.tree_map(lambda t: t.to(dev), load_params(weights))
+        idx, _ = source.sample_indices(8)
+        pair = make_pair(gen, to_unit_float(pool[torch.from_numpy(idx).to(
+            dev)]), aug, 0.10, tps_prob=0.7)
+        lg_batch = lgr.build_lg_batch(xparams, pair, aug, 512, 0.05,
+                                      generator=gen)
+        lloss, _, lgrads = lgr.loss_and_grads(lg_params, lg_batch)
+        lloss_c, _, lgrads_c = lgr.loss_and_grads(
+            optim.tree_map(lambda t: t.cpu(), lg_params),
+            {k: v.cpu() for k, v in lg_batch.items()})
+        (worst, leaf), (worst2, leaf2) = grads_agree(lgrads, lgrads_c)
+        print(f"LighterGlue step gradients, card against CPU: loss "
+              f"{float(lloss)!r} vs {float(lloss_c)!r}; worst leaf {leaf} "
+              f"max |diff| {worst:.3g} of its max |g|, {leaf2} ||diff|| "
+              f"{worst2:.3g} of ||g||; gt matches a pair "
+              f"{(lg_batch['gt_valid'].sum(-1)).tolist()}")
+        check(np.isfinite(float(lloss))
+              and abs(float(lloss) - float(lloss_c))
+              <= 1e-4 * abs(float(lloss_c)) and worst <= 1e-3,
+              "the card's LighterGlue gradients differ from the CPU path's")
+        out["lg_grad_worst"] = (worst, leaf, worst2, leaf2)
+        opt = optim.adam(1e-4)
+        lg_state = lgr.init_lg_train_state(lg_params, opt)
+        profile_call("lighterglue train step B=8 K=512",
+                     lambda: lgr.lg_train_step(lg_state, lg_batch, opt)[1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- (c) kernel D's backward alone --------------------------------------
+    def bwd_case(tag, b, n, d, seed, heads=1, empty_item=True, keep=0.8):
+        """b items of n keys, ragged masks (item 1 masked from n/2, item 0
+        all masked when `empty_item`), `heads` heads of width d folded into
+        the batch with the item's mask, as LighterGlue folds them."""
+        g_ = torch.Generator(device="cpu").manual_seed(seed)
+        q, k, v, do = (torch.randn((b * heads, n, d), generator=g_).to(dev)
+                       for _ in range(4))
+        mask = torch.rand((b, n), generator=g_) < keep
+        if b > 1:
+            mask[1, n // 2:] = False
+        if empty_item:
+            mask[0] = False
+        mask = mask.repeat_interleave(heads, 0).to(dev)
+        scale = d ** -0.5
+        o, lse = D._forward(q, k, v, mask, scale, want_lse=True)
+        got = D.attention_backward(q, k, v, mask, o, lse, do, scale)
+        again = D.attention_backward(q, k, v, mask, o, lse, do, scale)
+        plain = D.attention_backward_reference(q, k, v, mask, o, lse, do,
+                                               scale)
+        with torch.enable_grad():
+            x64 = [t.double().requires_grad_() for t in (q, k, v)]
+            ref = torch.autograd.grad(D.attention_reference(
+                *x64, mask, scale), x64, do.double())
+        torch.cuda.synchronize()
+        err_p = max(float((a - p).abs().max()) for a, p in zip(got, plain))
+        ok = all(bool(((a.double() - r).abs() <= 1e-4 + 1e-3 * r.abs())
+                      .all()) for a, r in zip(got, ref))
+        ok &= all(bool(((a - p).abs() <= 1e-4 + 1e-3 * p.abs()).all())
+                  for a, p in zip(got, plain))
+        err_64 = max(float((a.double() - r).abs().max())
+                     for a, r in zip(got, ref))
+        bit = all(torch.equal(a, c) for a, c in zip(got, again))
+        print(f"check attention_backward {tag} (B={b} N={n} D={d}, "
+              f"{int(mask.sum())} keys unmasked): max_abs_err to plain "
+              f"{err_p:.3g}, to float64 autograd {err_64:.3g}, two runs "
+              f"bit-equal {bit}")
+        check(ok and bit, f"kernel D's backward differs ({tag})")
+        return err_p, (q, k, v, mask, o, lse, do, scale)
+
+    errs = [bwd_case("LighterGlue training shape", 8, 512, 96, 21)[0]]
+    b3 = bwd_case("3 heads of 32", 8, 512, 32, 22, heads=3)
+    errs.append(b3[0])
+    e4, big = bwd_case("Nq=Nk=4096", 1, TOP_K, 96, 23, empty_item=False,
+                       keep=0.9)
+    errs.append(e4)
+    out["bwd_err"] = max(errs)
+    out["bwd_big"] = big
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -659,6 +981,7 @@ def main() -> int:
         _attention as lg_attention
     from accelerated_features_tpu_torch.ops.cuda import _build
     from accelerated_features_tpu_torch.ops.cuda.attention import (
+        attention_backward, attention_backward_reference,
         attention_reference, flash_attention)
     from accelerated_features_tpu_torch.ops.cuda.bicubic import (
         plain_descriptors, sample_descriptors)
@@ -816,8 +1139,6 @@ def main() -> int:
         "mnn": lambda: batch_mnn_match_fused(
             marked[0, :8].reshape(1, -1, 64),
             feats[1, :8].reshape(1, -1, 64)),
-        "attention": lambda: flash_attention(
-            *(marked[0, :8].reshape(1, -1, 64),) * 3),
         "stem_fused": lambda: stem_fused(stem_params, input_norm(x[:1])),
     }
     for name, call in guard_calls.items():
@@ -830,9 +1151,21 @@ def main() -> int:
         check(refused, f"the {name} wrapper did not refuse an input that "
                        f"requires grad")
         call()  # grad mode is off here: it runs
+    # kernel D has a backward: under grad mode its call is recorded and the
+    # gradient comes from the backward kernel
+    with torch.enable_grad():
+        before = attention_backward.launches
+        qd = marked[0, :8].reshape(1, -1, 64)
+        out_d = flash_attention(qd, qd, qd)
+        check(out_d.requires_grad, "kernel D's output is not recorded")
+        out_d.sum().backward()
+        check(attention_backward.launches == before + 1
+              and bool(torch.isfinite(marked.grad).all()),
+              "kernel D's backward did not run under autograd")
     torch.cuda.synchronize()
     print(f"check grad guard: {', '.join(guard_calls)} refuse an input that "
-          f"requires grad under grad mode and run under no_grad")
+          f"requires grad under grad mode and run under no_grad; attention "
+          f"records its call and runs its backward kernel")
 
     # kernel C at K1=K2=4096, B=4, ragged masks, on the real fp32
     # descriptors (image b against image b-1; images 1 and 0 are a true
@@ -1331,6 +1664,9 @@ def main() -> int:
     # ---- the SfM/SLAM path --------------------------------------------------
     slam = slam_phase(root, counters)
 
+    # ---- the training path --------------------------------------------------
+    train = train_phase(root, counters)
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
@@ -1503,6 +1839,45 @@ def main() -> int:
           f"kernel {lib_err:.3g}), bound {bms:.4f} ms ({by}, 3xTF32 at "
           f"{PEAK_TF32 / 1e12:.0f} TFLOP/s)")
 
+    # kernel D's backward at the same shape (its own seeded inputs, 10% of
+    # the keys masked): bound by the operations of its 5 products,
+    # 2*Nq*keys*D each over the unmasked keys, at the fp32 CUDA-core peak
+    # (it multiplies in FFMA); library: the fp32 backward of
+    # scaled_dot_product_attention (its graph built once, backward timed)
+    bq, bk, bv, bm, bo, blse, bdo, bscale = train["bwd_big"]
+    bwd_ms = time_ms(lambda: attention_backward(bq, bk, bv, bm, bo, blse,
+                                                bdo, bscale))
+    bwd_plain = time_ms(lambda: attention_backward_reference(
+        bq, bk, bv, bm, bo, blse, bdo, bscale), iters=20)
+    with torch.enable_grad():
+        lq, lk, lv = (t_[:, None].clone().requires_grad_()
+                      for t_ in (bq, bk, bv))
+        lout = F.scaled_dot_product_attention(lq, lk, lv,
+                                              attn_mask=bm[:, None, None],
+                                              scale=bscale)
+        bwd_lib = time_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), bdo[:, None], retain_graph=True))
+    bwd_keys = int(bm.sum())
+    bwd_bytes = 4 * (5 * bq.numel() + 3 * bk.numel() + bq.shape[1]) \
+        + bm.numel()
+    bwd_bound, bwd_by = bound(bwd_bytes, 5 * 2.0 * TOP_K * bwd_keys * 96)
+    rows.append(dict(name="attention_backward", route="cuda",
+                     source="accelerated_features_tpu_torch/csrc/"
+                            "attention_bwd.cu",
+                     replaces="accelerated_features_tpu/ops/pallas/"
+                              "attention.py:35",
+                     launches=train["lg_launches"]["attention_backward"],
+                     max_abs_err=train["bwd_err"], ms=bwd_ms,
+                     plain_ms=bwd_plain,
+                     bound_ms=bwd_bound, bound_by=bwd_by,
+                     bound_peak="fp32 CUDA-core peak", library_ms=bwd_lib,
+                     launches_per_lighterglue_train_step=train[
+                         "lg_launches"]["attention_backward"] / 3))
+    print(f"time attention_backward Nq=Nk={TOP_K} D=96, {bwd_keys} keys "
+          f"unmasked: kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
+          f"scaled_dot_product_attention fp32 backward {bwd_lib:.4f} ms, "
+          f"bound {bwd_bound:.4f} ms ({bwd_by}, fp32 FFMA at "
+          f"{PEAK_FP32 / 1e12:.0f} TFLOP/s)")
     # kernel E at B=1, 608x800, the main path's bfloat16 and float32. No
     # single PyTorch call computes this function. In bfloat16 the operands'
     # peak is the tensor cores', so bytes bound it; in float32, operations.
@@ -1560,6 +1935,11 @@ def main() -> int:
                 "max_abs_err_640x480": slam["errs"][name],
                 "ms_640x480": ms, "plain_ms_640x480": pms,
                 "bound_ms_640x480": bms, "bound_by_640x480": by})
+    for row in rows:  # launches in the 3 LighterGlue training steps
+        if row["name"] in train["lg_launches"] and \
+                row["name"] != "attention_backward":
+            row["launches_lighterglue_train_3_steps"] = \
+                train["lg_launches"][row["name"]]
     print(json.dumps({"kernels": rows}))
     print(device_label(dev))
     print(json.dumps({"ok": True, "device": {
