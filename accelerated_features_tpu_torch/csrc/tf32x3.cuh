@@ -1,6 +1,7 @@
 // Building blocks shared by the matrix-product kernels (mnn.cu,
-// attention.cu): float32-grade products on Hopper's tensor cores by the
-// 3xTF32 split, and asynchronous 16-byte copies into shared memory.
+// attention.cu, attention_bwd.cu): float32-grade products on Hopper's
+// tensor cores by the 3xTF32 split, and asynchronous copies into shared
+// memory.
 //
 // A float32 x is split into a TF32 head and tail, x ~ hi + lo. A product
 // a.b is then summed into one float32 accumulator from three tensor-core
@@ -58,6 +59,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
   const int bytes = real ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, the same way (through L1; any 4-byte aligned
+// address)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool real) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  const int bytes = real ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
                "l"(gmem), "r"(bytes)
                : "memory");
 }

@@ -9,7 +9,10 @@ counts kernel launches. Under autograd (grad mode on, an input requiring
 grad) the call goes through `_Attention`: the forward also writes the row
 log-sum-exp, and the backward kernel (`attention_backward`, plain version
 `attention_backward_reference`) gives dq, dk and dv;
-`attention_backward.launches` counts its calls.
+`attention_backward.launches` counts its calls. The backward multiplies on
+the tensor cores the same way, in one launch whose grid holds both of its
+roles (blocks that own keys: dK, dV; blocks that own query rows: dQ) after
+a small launch for rowsum(dO * O).
 
 The kernel computes both products on the H100's tensor cores at float32
 grade (3xTF32: every float32 operand split into a TF32 head and tail, three
@@ -157,7 +160,13 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of kernel D's function given dO, the output o and the
     forward's row log-sum-exp (natural log, (B,Nq)): the backward kernel
     (`csrc/attention_bwd.cu`) on CUDA tensors, `attention_backward_reference`
-    on CPU tensors. `attention_backward.launches` counts kernel calls."""
+    on CPU tensors. `attention_backward.launches` counts kernel calls.
+
+    The kernel multiplies as the forward does, 3xTF32 on the tensor cores,
+    and reads q, k, v, o and dout 16 bytes at a time: each must be a
+    contiguous float32 tensor on a 16-byte boundary (a ValueError names the
+    one that is not). It is bound by operations, 3 x 5 products of
+    2*Nq*keys*D at the TF32 peak; two runs give bit-equal gradients."""
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, mask_k, o, lse, dout,
                                             scale)
@@ -169,6 +178,8 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.check_cuda(t, name, torch.float32, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if name != "lse" and t.data_ptr() % 16:  # read 16 bytes at a time
+            raise ValueError(f"{name} must be 16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, nq), dtype=torch.float32, device=q.device)
     lib = _bwd_lib()

@@ -5,8 +5,9 @@ against its plain version and time it.
 
 SPEC is JSON: {KERNEL: {name: [nvcc flags]}, "src": {name:
 "path/to/other.cu"}, "tile_q": {name: rows}, "tile_k": {name: keys}} with
-KERNEL one of "mnn" (C, `csrc/mnn.cu`), "attention" (D), "stem_fused" (E),
-"detect_fused" (A) and "bicubic" (B). A variant is the kernel's source,
+KERNEL one of "mnn" (C, `csrc/mnn.cu`), "attention" (D), "attention_bwd"
+(D's backward, `csrc/attention_bwd.cu`), "stem_fused" (E), "detect_fused"
+(A) and "bicubic" (B). A variant is the kernel's source,
 or the file "src" names for it (relative to the working directory),
 compiled with
 `ops/cuda/_build.NVCC_FLAGS` plus its own flags (`-DKNOB=...` for `#ifdef`
@@ -19,6 +20,10 @@ and compared with the plain version:
      that differ;
   D: B = 1, Nq = Nk = 4096, D = 96, a tenth of the keys masked; max abs
      error;
+  D's backward: the same shape and mask (its own seeded q, k, v, dO; o
+     and the log-sum-exp from kernel D), and LighterGlue training's shape
+     (B = 8, 512 x 512, D = 96, ragged masks, one item all masked); max
+     abs error of dq, dk, dv against `attention_backward_reference`;
   E: B = 1, 608x800, the trained extractor's stem on a seeded texture, in
      float32 (max abs error) and bfloat16 (max abs error against the plain
      bfloat16 version);
@@ -55,12 +60,16 @@ from accelerated_features_tpu_torch.ops.cuda import (  # noqa: E402
 from accelerated_features_tpu_torch.ops.matching import \
     batch_mnn_match  # noqa: E402
 
-MODULES = {"mnn": mnn, "attention": attention, "stem_fused": stem_fused,
-           "detect_fused": detect_fused, "bicubic": bicubic}
+MODULES = {"mnn": mnn, "attention": attention, "attention_bwd": attention,
+           "stem_fused": stem_fused, "detect_fused": detect_fused,
+           "bicubic": bicubic}
 ENTRIES = {"mnn": ["mnn_match"], "attention": ["attention_forward"],
+           "attention_bwd": ["attention_backward"],
            "stem_fused": ["stem_fused"],
            "detect_fused": ["detect_topk", "topk_exact"],
            "bicubic": ["bicubic_sample_normalize"]}
+# the module function that returns a kernel's loaded library
+LOADERS = {"attention_bwd": "_bwd_lib"}
 
 
 def build(spec: dict, out_dir: Path) -> dict:
@@ -87,7 +96,8 @@ def build(spec: dict, out_dir: Path) -> dict:
             if "warning" in line.lower():
                 print(key, line[:300])
             if "Compiling entry" in line and (
-                    key[0] in ("stem_fused", "detect_fused", "bicubic")
+                    key[0] in ("stem_fused", "detect_fused", "bicubic",
+                               "attention_bwd")
                     or "panel" in line or "ILi96" in line):
                 print(key, line.split("'")[1][-40:], "|",
                       lines[i + 2].strip(), "|", lines[i + 3].strip())
@@ -114,6 +124,8 @@ def cases() -> dict:
                             dtype=torch.float32, device=dev) for _ in range(3))
     mk = torch.tensor(rng.uniform(size=(1, 4096)) > 0.1, device=dev)
     ref = attention.attention_reference(q, k, v, mk)
+    bwd = [_bwd_case(rng, 1, 4096, mk), _bwd_case(
+        rng, 8, 512, torch.tensor(_train_mask(rng), device=dev))]
 
     def mnn_err(out):
         return int(((out[0] != i_p) | (out[1] != m_p)).sum())
@@ -160,6 +172,12 @@ def cases() -> dict:
             d1, d2, va, vb, -1.0), mnn_err)],
         "attention": [("4096x4096x96", lambda: attention.flash_attention(
             q, k, v, mk), lambda o: float((o - ref).abs().max()))],
+        "attention_bwd": [
+            (label, lambda a=args: attention.attention_backward(*a),
+             lambda o, w=want: max(float((x - y).abs().max())
+                                   for x, y in zip(o, w)))
+            for label, (args, want) in zip(
+                ("4096x4096x96", "B=8 512x512x96"), bwd)],
         "stem_fused": [
             ("float32", lambda: stem_fused.stem_fused(params, xg),
              lambda o: float((o - e32).abs().max())),
@@ -174,6 +192,29 @@ def cases() -> dict:
         "bicubic": [("K=4096", lambda: bicubic.sample_descriptors(
             maps, kpts, hw), lambda o: float((o - descs).abs().max()))],
     }
+
+
+def _train_mask(rng) -> np.ndarray:
+    """LighterGlue training's key masks at B = 8, 512 keys: ragged, item 0
+    all masked."""
+    keep = rng.uniform(size=(8, 512)) > 0.2
+    keep[1, 256:] = False
+    keep[0] = False
+    return keep
+
+
+def _bwd_case(rng, b: int, n: int, mask: torch.Tensor):
+    """(attention_backward's arguments, its plain version's result) for b
+    items of n keys, D = 96, seeded q, k, v, dO; o and the log-sum-exp from
+    kernel D."""
+    dev = mask.device
+    q, k, v, do = (torch.tensor(rng.normal(size=(b, n, 96)),
+                                dtype=torch.float32, device=dev)
+                   for _ in range(4))
+    scale = 96 ** -0.5
+    o, lse = attention._forward(q, k, v, mask, scale, want_lse=True)
+    args = (q, k, v, mask, o, lse, do, scale)
+    return args, attention.attention_backward_reference(*args)
 
 
 def _to(tree, dev):
@@ -199,13 +240,14 @@ def main() -> int:
                 lib.error_string.argtypes = [ctypes.c_int]
                 lib.error_string.restype = ctypes.c_char_p
                 module = MODULES[kern]
-                real = module._lib
+                loader = LOADERS.get(kern, "_lib")
+                real = getattr(module, loader)
                 arg_lib = real()  # the argtypes of the real one
                 for entry in ENTRIES[kern]:
                     getattr(lib, entry).argtypes = \
                         getattr(arg_lib, entry).argtypes
                     getattr(lib, entry).restype = ctypes.c_int
-                module._lib = lambda lib=lib: lib
+                setattr(module, loader, lambda lib=lib: lib)
                 if kern == "attention":
                     attention._TILE_Q = spec.get("tile_q", {}).get(name, 128)
                     attention._TILE_K = spec.get("tile_k", {}).get(name, 64)
@@ -226,7 +268,7 @@ def main() -> int:
                             lib.read_dbg(clocks)
                             print(f"   clocks by phase, one call: "
                                   f"{list(clocks)}")
-                module._lib = real
+                setattr(module, loader, real)
     return 0
 
 

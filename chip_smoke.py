@@ -49,8 +49,9 @@ Run from the root of a checkout. In order, it
      gradients against the CPU path), and D's backward alone against its
      plain version and float64 autograd;
   7. times each kernel against its plain version, its bound and, where one
-     exists, a single PyTorch call computing the same function, and
-     profiles one call of each matcher.
+     exists, a single PyTorch call computing the same function (D's
+     backward also at LighterGlue training's shape), and profiles one call
+     of each matcher.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
 and, last, `{"ok": true, "device": {...}}`. Without a GPU, or outside a
 checkout, it exits non-zero and prints no result.
@@ -944,7 +945,9 @@ def train_phase(root: Path, counters: dict) -> dict:
         check(ok and bit, f"kernel D's backward differs ({tag})")
         return err_p, (q, k, v, mask, o, lse, do, scale)
 
-    errs = [bwd_case("LighterGlue training shape", 8, 512, 96, 21)[0]]
+    e_train, out["bwd_train"] = bwd_case("LighterGlue training shape", 8,
+                                         512, 96, 21)
+    errs = [e_train]
     b3 = bwd_case("3 heads of 32", 8, 512, 32, 22, heads=3)
     errs.append(b3[0])
     e4, big = bwd_case("Nq=Nk=4096", 1, TOP_K, 96, 23, empty_item=False,
@@ -1840,27 +1843,37 @@ def main() -> int:
           f"{PEAK_TF32 / 1e12:.0f} TFLOP/s)")
 
     # kernel D's backward at the same shape (its own seeded inputs, 10% of
-    # the keys masked): bound by the operations of its 5 products,
-    # 2*Nq*keys*D each over the unmasked keys, at the fp32 CUDA-core peak
-    # (it multiplies in FFMA); library: the fp32 backward of
+    # the keys masked) and at LighterGlue training's (B=8, 512 x 512, ragged
+    # masks, one item all masked). The function needs 5 products of
+    # 2*Nq*keys*D over the unmasked keys (the kernel does 7: S and dP in
+    # both of its roles), held to float32 grade, so three TF32 products an
+    # output bound it; library: the fp32 backward of
     # scaled_dot_product_attention (its graph built once, backward timed)
-    bq, bk, bv, bm, bo, blse, bdo, bscale = train["bwd_big"]
-    bwd_ms = time_ms(lambda: attention_backward(bq, bk, bv, bm, bo, blse,
-                                                bdo, bscale))
-    bwd_plain = time_ms(lambda: attention_backward_reference(
-        bq, bk, bv, bm, bo, blse, bdo, bscale), iters=20)
-    with torch.enable_grad():
-        lq, lk, lv = (t_[:, None].clone().requires_grad_()
-                      for t_ in (bq, bk, bv))
-        lout = F.scaled_dot_product_attention(lq, lk, lv,
-                                              attn_mask=bm[:, None, None],
-                                              scale=bscale)
-        bwd_lib = time_ms(lambda: torch.autograd.grad(
-            lout, (lq, lk, lv), bdo[:, None], retain_graph=True))
-    bwd_keys = int(bm.sum())
-    bwd_bytes = 4 * (5 * bq.numel() + 3 * bk.numel() + bq.shape[1]) \
-        + bm.numel()
-    bwd_bound, bwd_by = bound(bwd_bytes, 5 * 2.0 * TOP_K * bwd_keys * 96)
+    def bwd_times(args):
+        bq, bk, bv, bm, bo, blse, bdo, bscale = args
+        ms_ = time_ms(lambda: attention_backward(*args))
+        plain_ = time_ms(lambda: attention_backward_reference(*args),
+                         iters=20)
+        with torch.enable_grad():
+            lq, lk, lv = (t_[:, None].clone().requires_grad_()
+                          for t_ in (bq, bk, bv))
+            lout = F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=bm[:, None, None], scale=bscale)
+            lib_ = time_ms(lambda: torch.autograd.grad(
+                lout, (lq, lk, lv), bdo[:, None], retain_graph=True))
+        # unmasked keys each item's rows attend to; an item with none needs
+        # only dv = colsum(dO)/Nk, no product
+        keys_ = bm.sum(-1).double()
+        flops = 3 * 5 * 2.0 * bq.shape[1] * float(keys_.sum()) * bq.shape[2]
+        # q, o, dO read and dq written; k, v read and dk, dv written
+        nbytes = 4 * (4 * bq.numel() + 4 * bk.numel() + blse.numel()) \
+            + bm.numel()
+        return ms_, plain_, lib_, bound(nbytes, flops, PEAK_TF32), \
+            int(keys_.sum())
+    bwd_ms, bwd_plain, bwd_lib, (bwd_bound, bwd_by), bwd_keys = \
+        bwd_times(train["bwd_big"])
+    tr_ms, tr_plain, tr_lib, (tr_bound, tr_by), tr_keys = \
+        bwd_times(train["bwd_train"])
     rows.append(dict(name="attention_backward", route="cuda",
                      source="accelerated_features_tpu_torch/csrc/"
                             "attention_bwd.cu",
@@ -1870,14 +1883,26 @@ def main() -> int:
                      max_abs_err=train["bwd_err"], ms=bwd_ms,
                      plain_ms=bwd_plain,
                      bound_ms=bwd_bound, bound_by=bwd_by,
-                     bound_peak="fp32 CUDA-core peak", library_ms=bwd_lib,
+                     bound_peak="3 x operations of 5 products at the TF32 "
+                                "tensor-core peak", library_ms=bwd_lib,
                      launches_per_lighterglue_train_step=train[
-                         "lg_launches"]["attention_backward"] / 3))
-    print(f"time attention_backward Nq=Nk={TOP_K} D=96, {bwd_keys} keys "
-          f"unmasked: kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, "
-          f"scaled_dot_product_attention fp32 backward {bwd_lib:.4f} ms, "
-          f"bound {bwd_bound:.4f} ms ({bwd_by}, fp32 FFMA at "
-          f"{PEAK_FP32 / 1e12:.0f} TFLOP/s)")
+                         "lg_launches"]["attention_backward"] / 3,
+                     ms_lighterglue_train_shape=tr_ms,
+                     plain_ms_lighterglue_train_shape=tr_plain,
+                     library_ms_lighterglue_train_shape=tr_lib,
+                     bound_ms_lighterglue_train_shape=tr_bound,
+                     bound_by_lighterglue_train_shape=tr_by))
+    for tag, ms_, plain_, lib_, bound_, by_, keys_ in (
+            (f"Nq=Nk={TOP_K} D=96", bwd_ms, bwd_plain, bwd_lib, bwd_bound,
+             bwd_by, bwd_keys),
+            ("B=8 Nq=Nk=512 D=96 (LighterGlue training)", tr_ms, tr_plain,
+             tr_lib, tr_bound, tr_by, tr_keys)):
+        print(f"time attention_backward {tag}, {keys_} keys unmasked: "
+              f"kernel {ms_:.4f} ms, plain {plain_:.4f} ms, "
+              f"scaled_dot_product_attention fp32 backward {lib_:.4f} ms, "
+              f"bound {bound_:.4f} ms ({by_}, 3 x 5 products at "
+              f"{PEAK_TF32 / 1e12:.0f} TFLOP/s), share of the bound "
+              f"{bound_ / ms_:.3f}")
     # kernel E at B=1, 608x800, the main path's bfloat16 and float32. No
     # single PyTorch call computes this function. In bfloat16 the operands'
     # peak is the tensor cores', so bytes bound it; in float32, operations.

@@ -307,23 +307,35 @@ def test_attention_kernel_masked_keys(dev):
     torch.testing.assert_close(got[2:], base, **ATTN_TOL)
 
 
-@pytest.mark.parametrize("b,nq,nk,d,heads", [
-    (8, 512, 512, 96, 1), (2, 512, 512, 96, 3), (1, 300, 4096, 96, 1),
-    (3, 65, 129, 64, 1), (2, 1, 70, 32, 1)])
-def test_attention_backward_kernel(dev, b, nq, nk, d, heads):
+@pytest.mark.parametrize("b,nq,nk,d,heads,hole", [
+    pytest.param(*case, id="-".join(map(str, case[:5])) + (
+        f"-hole{case[5]}" if case[5] is not None else ""))
+    for case in [(8, 512, 512, 96, 1, None), (2, 512, 512, 96, 3, None),
+                 (1, 300, 4096, 96, 1, None), (3, 65, 129, 64, 1, None),
+                 (2, 1, 70, 32, 1, None), (3, 200, 320, 96, 1, 2),
+                 (8, 512, 512, 96, 3, None), (2, 333, 461, 64, 1, None)]])
+def test_attention_backward_kernel(dev, b, nq, nk, d, heads, hole):
     """The backward kernel's dq, dk, dv against float64 autograd of
     `attention_reference` and against its plain version on the card, with
     ragged masks, one item whose keys are all masked and three heads of
     width 32 folded into the batch; two runs are bit-equal. Gate: atol 1e-4
     + rtol 1e-3 of float64 (float32 kernels on float32 inputs), and the
-    plain version the same way."""
+    plain version the same way. `hole`: key tile (64 keys) `hole` of every
+    item but the first is all masked, between unmasked tiles, so the kernel
+    skips it (its dk and dv are 0). Three heads at B = 8, N = 512 give more
+    blocks than the card has SMs; Nq != Nk leaves both edges ragged."""
     rng = np.random.default_rng(nq + nk + d)
     bh, hd = b * heads, d // heads
     q, k, v, g = (torch.tensor(rng.normal(size=(bh, n, hd)),
                                dtype=torch.float32, device=dev)
                   for n in (nq, nk, nk, nq))
     keep = rng.uniform(size=(b, nk)) > 0.2
-    keep[:, rng.integers(1, nk + 1):] = False
+    if hole is None:
+        keep[:, rng.integers(1, nk + 1):] = False
+    else:
+        keep[:, 64 * hole:64 * (hole + 1)] = False
+        assert keep[1:, :64 * hole].any(-1).all() \
+            and keep[1:, 64 * (hole + 1):].any(-1).all()
     keep[0] = False
     mask = torch.tensor(keep, device=dev).repeat_interleave(heads, 0)
     qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
@@ -358,6 +370,32 @@ def test_attention_backward_kernel(dev, b, nq, nk, d, heads):
                                              True)[1], g, hd ** -0.5)
     for a, c in zip(again, first):
         assert torch.equal(a, c)
+    if hole is not None:
+        rows = slice(64 * hole, 64 * (hole + 1))
+        assert not got[1][heads:, rows].any() and not got[2][heads:, rows].any()
+
+
+@pytest.mark.parametrize("name", ["o", "dout"])
+def test_attention_backward_refuses_misaligned_o_and_dout(dev, name):
+    """The kernel reads o and dout 16 bytes at a time: a contiguous view
+    that starts 4 bytes into its storage is refused with a ValueError."""
+    rng = np.random.default_rng(0)
+    q, k, v, g = (torch.tensor(rng.normal(size=(1, 70, 32)),
+                               dtype=torch.float32, device=dev)
+                  for _ in range(4))
+    o, lse = attention._forward(q, k, v, None, 32 ** -0.5, True)
+    args = {"o": o, "dout": g}
+    flat = torch.empty(args[name].numel() + 1, dtype=torch.float32,
+                       device=dev)
+    shifted = flat[1:].view(args[name].shape)
+    shifted.copy_(args[name])
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    args[name] = shifted
+    n = attention.attention_backward.launches
+    with pytest.raises(ValueError, match=f"{name} must be 16-byte aligned"):
+        attention.attention_backward(q, k, v, None, args["o"], lse,
+                                     args["dout"], 32 ** -0.5)
+    assert attention.attention_backward.launches == n
 
 
 def test_lighterglue_attention_routes_to_the_kernel(dev):

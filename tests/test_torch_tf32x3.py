@@ -1,22 +1,24 @@
 """The 3xTF32 arithmetic of kernels C (`csrc/mnn.cu`) and D
-(`csrc/attention.cu`), emulated on the CPU by `ops.precision`: does a
-product summed from three TF32 tensor-core products keep the float32 gates
-of the two kernels? A single TF32 pass must fail the same checks, so the
-tests can tell the two apart."""
+(`csrc/attention.cu`, and its backward `csrc/attention_bwd.cu`), emulated
+on the CPU by `ops.precision`: does a product summed from three TF32
+tensor-core products keep the float32 gates of the kernels? A single TF32
+pass must fail the same checks, so the tests can tell the two apart."""
 
 import math
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from accelerated_features_tpu.models import lighterglue as jlg
 from accelerated_features_tpu.ops.pallas.attention import \
     attention_reference as jax_attention_reference
 from accelerated_features_tpu_torch import XFeat
-from accelerated_features_tpu_torch.ops.cuda.attention import \
-    attention_reference
+from accelerated_features_tpu_torch.ops.cuda.attention import (
+    NEG as ATTN_NEG, attention_reference)
 from accelerated_features_tpu_torch.ops.cuda.mnn import near_ties
 from accelerated_features_tpu_torch.ops.matching import NEG, batch_mnn_match
 from accelerated_features_tpu_torch.ops.precision import (full_fp32_convs,
@@ -231,6 +233,89 @@ def test_attention_on_single_tf32_products_fails_the_gate(d):
     got = attention_emulated(tq, tk, tv, None, tf32_matmul)
     ref = attention_reference(tq, tk, tv, None)
     assert bool(((got - ref).abs() > 2e-5 + 1e-4 * ref.abs()).any())
+
+
+def attention_backward_emulated(q, k, v, mask_k, dout, matmul):
+    """Kernel D's forward and backward with every product through `matmul`:
+    o and the row log-sum-exp as the forward kernel gives them, then the
+    formulas of `attention_backward_reference` (P from the log-sum-exp,
+    dV = P^T dO, dP = dO V^T, dS = P (dP - Delta) cut at masked keys,
+    dQ = scale dS K, dK = scale dS^T Q; an item whose keys are all masked
+    has P = 1/Nk). Returns (dq, dk, dv)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = matmul(q, k.transpose(1, 2)) * scale
+    if mask_k is not None:
+        s = torch.where(mask_k[:, None, :], s, ATTN_NEG)
+    lse = torch.logsumexp(s, dim=-1)
+    o = matmul(torch.softmax(s, dim=-1), v)
+    p = torch.exp(s - lse[..., None])
+    if mask_k is not None:
+        p = torch.where(mask_k[:, None, :], p, 0.0)
+        empty = ~mask_k.any(dim=-1)
+        p = torch.where(empty[:, None, None], 1.0 / k.shape[1], p)
+    dv = matmul(p.transpose(1, 2), dout)
+    delta = (dout * o).sum(dim=-1, keepdim=True)
+    ds = p * (matmul(dout, v.transpose(1, 2)) - delta)
+    if mask_k is not None:
+        ds = torch.where(mask_k[:, None, :], ds, 0.0)
+    return (matmul(ds, k) * scale, matmul(ds.transpose(1, 2), q) * scale,
+            dv)
+
+
+def _backward_references(q, k, v, mask, dout):
+    """(float64 autograd of `attention_reference`, `jax.grad` of the JAX
+    package's LighterGlue attention), each (dq, dk, dv) as float64."""
+    x64 = [torch.from_numpy(a).double().requires_grad_() for a in (q, k, v)]
+    tm = None if mask is None else torch.from_numpy(mask)
+    ref = torch.autograd.grad(attention_reference(*x64, tm),
+                              x64, torch.from_numpy(dout).double())
+    jm = None if mask is None else jnp.asarray(mask)
+    jg = jax.grad(lambda a, c, e: jnp.sum(
+        jlg._attention(a, c, e, jm, 1) * dout), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return ref, tuple(torch.from_numpy(np.array(x)).double() for x in jg)
+
+
+def _emulated_backward(d, masked, matmul):
+    q, k, v, mask = _attention_inputs(d, masked)
+    dout = np.random.default_rng(d + 1).normal(
+        size=q.shape).astype(np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
+    tm = None if mask is None else torch.from_numpy(mask)
+    got = attention_backward_emulated(tq, tk, tv, tm, tdo, matmul)
+    return got, _backward_references(q, k, v, mask, dout), dout
+
+
+@pytest.mark.parametrize("d", [32, 64, 96])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("cut", [False, True])
+def test_attention_backward_on_tf32x3_products_keeps_the_gate(d, masked,
+                                                               cut):
+    """The backward kernel's card gate, atol 1e-4 + rtol 1e-3, on emulated
+    3xTF32 products (all seven of the forward and the backward) with the
+    exact split and with the cut split the kernel uses: dq, dk and dv
+    against float64 autograd of `attention_reference` and against
+    `jax.grad` of the JAX package's attention, on the same numpy inputs
+    (ragged masks and an item whose keys are all masked, or no mask)."""
+    got, (ref, ref_jax), dout = _emulated_backward(
+        d, masked, lambda a, b: tf32x3_matmul(a, b, cut))
+    for x, r, rj in zip(got, ref, ref_jax):
+        assert bool(torch.isfinite(x).all())
+        for want in (r, rj):
+            assert bool(((x.double() - want).abs()
+                         <= 1e-4 + 1e-3 * want.abs()).all())
+    if masked:  # the empty item: dv = colsum(dO)/Nk, dq = dk = 0
+        nk = got[2].shape[1]
+        want = torch.from_numpy(dout[1].sum(0) / nk).expand(nk, -1)
+        assert float((got[2][1] - want).abs().max()) <= 1e-5
+        assert not got[0][1].any() and not got[1][1].any()
+
+
+@pytest.mark.parametrize("d", [32, 96])
+def test_attention_backward_on_single_tf32_products_fails_the_gate(d):
+    got, (ref, _), _ = _emulated_backward(d, True, tf32_matmul)
+    assert any(bool(((x.double() - r).abs() > 1e-4 + 1e-3 * r.abs()).any())
+               for x, r in zip(got, ref))
 
 
 @pytest.mark.parametrize("switch,backend", [
