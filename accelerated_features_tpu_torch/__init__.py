@@ -1,7 +1,10 @@
 """PyTorch/CUDA port of `accelerated_features_tpu`: sparse XFeat, the
 semi-dense XFeat* pipeline, the LighterGlue matcher, and the pose path
 (`geometry`: the native posekit backend and a batched essential-matrix
-RANSAC on the device; `eval`: the relative-pose benchmark harness).
+RANSAC on the device; `eval`: the relative-pose benchmark harness), the
+SfM/SLAM layer (`sfm`), training (`train`), and the batching HTTP server
+(`apps/serve.py`) with hub entries (`hub.py`) and the config tree
+(`config.py`).
 
 The JAX package stays the reference; this package computes the same
 functions with PyTorch and hand-written CUDA kernels for Hopper

@@ -20,7 +20,7 @@ import torch
 
 from .models.backbone import XFeatModel
 from .models.lighterglue import LighterGlue
-from .models.params import load_params
+from .models.params import flatten_tree, load_params, params_to_jax
 from .ops.cuda.mnn import batch_mnn_match_fused
 from .ops.extraction import detect_and_compute, detect_and_compute_dense
 from .ops.matching import batch_mnn_match
@@ -46,15 +46,61 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return torch.device("cuda")
 
 
+def parse_input_host(x: ArrayLike) -> ArrayLike:
+    """parse_input's shape and range rules without a device transfer:
+    numpy in, numpy out; a tensor keeps its device and dtype. Integer
+    images keep their dtype (scaled by 1/255 inside the pipeline). 3-D
+    inputs whose last dim is 1, 3 or 4 are single images, others gray
+    batches. Gray integer numpy images are expanded to three equal
+    channels, as the JAX package does. Numpy floats become float32 and,
+    above 1.5, are taken as 0-255 and divided by 255; tensors are trusted
+    to be in [0, 1]. Returns (B,H,W,C)."""
+    is_np = not isinstance(x, torch.Tensor)
+    if is_np:
+        x = np.asarray(x)
+    if x.ndim == 2:
+        x = x[..., None]
+    if x.ndim == 3:
+        x = x[None] if x.shape[-1] in (1, 3, 4) else x[..., None]
+    if is_np:
+        if np.issubdtype(x.dtype, np.integer):
+            if x.shape[-1] == 1:
+                x = np.repeat(x, 3, axis=-1)
+            if x.dtype not in (np.uint8, np.int16, np.int32, np.int64):
+                x = x.astype(np.int32)  # uint16/uint32: torch-safe
+        elif np.issubdtype(x.dtype, np.floating):
+            x = np.asarray(x, np.float32)
+            if x.size and float(np.max(x)) > 1.5:
+                x = x / np.float32(255.0)
+    return x
+
+
+def save_params(params: Mapping[str, Any], path: str) -> None:
+    """Write an extractor tree as the JAX package's flat `.npz` (`a/b/0/w`
+    keys, conv weights HWIO, linear weights (in, out)), which both
+    packages' `load_params` read. `params`: the port's tensor tree (e.g.
+    `XFeat.model.params`, or `load_params(..., fold_bn=False)` to keep the
+    BatchNorm stats), put into the JAX layout by `params_to_jax`, or a
+    JAX-layout numpy tree, written as it is."""
+    flat = flatten_tree(params)
+    if any(isinstance(v, torch.Tensor) for v in flat.values()):
+        flat = flatten_tree(params_to_jax(params))
+    np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
+
+
 class XFeat:
     """XFeat inference: `detectAndCompute`, `detectAndComputeDense`,
     `match`, `batch_match`, `match_xfeat`, `match_xfeat_star`,
     `refine_matches`, `set_lighterglue`, `match_lighterglue`.
 
-    `weights`: an extractor `.npz` path (the JAX package's format; a full
-    train state works too), a JAX-layout numpy parameter tree, or None for
-    a random extractor (`models.params.init_xfeat_params`, seed 0; the JAX
-    package's shapes and bounds, drawn by torch, so other values).
+    `weights`: any format of `models.params.load_params`: an extractor
+    `.npz` path (the JAX package's format; a full train state works too),
+    a training checkpoint directory, a `.pt`/`.pth` path or an in-memory
+    state dict in the reference model's torch layout, a JAX-layout numpy
+    parameter tree, or None for a random extractor
+    (`models.params.init_xfeat_params`, seed 0; the JAX package's shapes
+    and bounds, drawn by torch, so other values). The default is the
+    repository's trained extractor.
     `compute_dtype`: "float32" or "bfloat16", the backbone's dtype;
     selection, descriptors and matching stay float32.
     `fused_stem`: run the backbone's stem as the fused stem kernel (its
@@ -88,7 +134,8 @@ class XFeat:
         self.set_params(weights)
 
     def set_params(self, weights: Weights) -> None:
-        """Swap the extractor weights in place (same formats as __init__)."""
+        """Swap the extractor weights in place (every format __init__
+        takes)."""
         self.model = XFeatModel(load_params(weights)).to(self.device).eval()
 
     def _mnn(self, d1: torch.Tensor, d2: torch.Tensor,
@@ -111,29 +158,9 @@ class XFeat:
         return x.float()
 
     def _parse_input_raw(self, x: ArrayLike) -> torch.Tensor:
-        """parse_input's shape and range rules, but integer images keep
-        their dtype (scaled by 1/255 inside the pipeline). 3-D inputs whose
-        last dim is 1, 3 or 4 are single images, others gray batches. Gray
-        integer numpy images are expanded to three equal channels, as the
-        JAX package does. Numpy floats above 1.5 are taken as 0-255 and
-        divided by 255; torch tensors are trusted to be in [0, 1]."""
-        is_np = not isinstance(x, torch.Tensor)
-        if is_np:
-            x = np.asarray(x)
-        if x.ndim == 2:
-            x = x[..., None]
-        if x.ndim == 3:
-            x = x[None] if x.shape[-1] in (1, 3, 4) else x[..., None]
-        if is_np:
-            if np.issubdtype(x.dtype, np.integer):
-                if x.shape[-1] == 1:
-                    x = np.repeat(x, 3, axis=-1)
-                if x.dtype not in (np.uint8, np.int16, np.int32, np.int64):
-                    x = x.astype(np.int32)  # uint16/uint32: torch-safe
-            elif np.issubdtype(x.dtype, np.floating):
-                x = np.asarray(x, np.float32)
-                if x.size and float(np.max(x)) > 1.5:
-                    x = x / np.float32(255.0)
+        """`parse_input_host`, then onto the device."""
+        x = parse_input_host(x)
+        if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.to(self.device)
 
@@ -274,9 +301,11 @@ class XFeat:
                                                 ] = None,
                         **kwargs) -> LighterGlue:
         """Load the LighterGlue matcher onto this extractor's device.
-        `weights`: a matcher `.npz` path or a JAX-layout numpy tree. None
-        is an explicit opt-in to random weights (smoke tests only) and
-        warns."""
+        `weights`: every format `models.lighterglue.LighterGlue` takes (a
+        matcher `.npz` path, a checkpoint directory, a `.pt`/`.pth` path or
+        an in-memory state dict in the kornia LightGlue layout, a
+        JAX-layout numpy tree). None is an explicit opt-in to random
+        weights (smoke tests only) and warns."""
         if weights is None:
             warnings.warn("LighterGlue initialized with RANDOM weights: "
                           "matches will be arbitrary. Pass weights=... for "

@@ -26,12 +26,14 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.cuda.attention import NEG, flash_attention
 from ..ops.precision import full_fp32_matmuls
-from .params import load_lighterglue_params
+from .params import (is_state_dict, is_torch_file, load_lighterglue_params,
+                     read_torch_file)
 
 DEFAULT_CONF = {
     "input_dim": 64,
@@ -91,6 +93,96 @@ def init_lighterglue_params(gen: torch.Generator,
             "matchability": _linear_init(gen, dim, 1),
             "final_proj": _linear_init(gen, dim, dim)})
         params["token_confidence"].append(_linear_init(gen, dim, 1))
+    return params
+
+
+def _t(sd: Mapping[str, Any], key: str) -> torch.Tensor:
+    v = sd[key]
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32).clone()
+    return torch.tensor(np.asarray(v, np.float32))
+
+
+def _lin(sd: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """A Linear as the port stores it: weight (out, in) as torch keeps it;
+    a missing bias is zeros."""
+    w = _t(sd, prefix + ".weight")
+    b = _t(sd, prefix + ".bias") if prefix + ".bias" in sd \
+        else torch.zeros(w.shape[0])
+    return {"w": w, "b": b}
+
+
+def _qkv_row_perm(dim: int, heads: int) -> np.ndarray:
+    """Row permutation from the kornia/official fused Wqkv packing to the
+    port's chunked [q | k | v] rows.
+
+    The official SelfBlock does `qkv.unflatten(-1, (heads, -1, 3))` and
+    takes q, k, v as `[..., 0]`, `[..., 1]`, `[..., 2]`: output row o of
+    Wqkv is (head o // (3*hd), feature (o % (3*hd)) // 3, which o % 3),
+    q, k and v interleaved per feature. The forward splits the projection
+    into contiguous thirds, so row t of the port's weight is row
+    `perm[t]` of Wqkv (the JAX package's permutation, applied there to
+    the columns of its (in, out) weight)."""
+    hd = dim // heads
+    out = np.empty(3 * dim, np.int64)
+    t = 0
+    for which in range(3):
+        for h in range(heads):
+            for d in range(hd):
+                out[t] = h * 3 * hd + d * 3 + which
+                t += 1
+    return out
+
+
+def import_lighterglue_state_dict(sd: Mapping[str, Any],
+                                  conf: Mapping[str, Any] = DEFAULT_CONF
+                                  ) -> Dict[str, Any]:
+    """A torch LightGlue state dict in the kornia layout (tensor or numpy
+    values) -> the port's tree on the CPU (linear weights (out, in)).
+
+    Accepts the published names (`self_attn.{i}`, `cross_attn.{i}`, an
+    optional `matcher.` prefix) and the renamed ones
+    (`transformers.{i}.self_attn`), as the JAX package's function of the
+    same name does; Wqkv's rows are permuted by `_qkv_row_perm`."""
+    norm = {}
+    for k, v in sd.items():
+        k = k.replace("matcher.", "")
+        for i in range(conf["n_layers"]):
+            k = k.replace(f"self_attn.{i}", f"transformers.{i}.self_attn")
+            k = k.replace(f"cross_attn.{i}", f"transformers.{i}.cross_attn")
+        norm[k] = v
+    sd = norm
+
+    def ln(prefix):
+        return {"w": _t(sd, prefix + ".weight"), "b": _t(sd, prefix + ".bias")}
+
+    params: Dict[str, Any] = {
+        "input_proj": _lin(sd, "input_proj"),
+        "posenc_wr": _t(sd, "posenc.Wr.weight").T.contiguous(),
+        "layers": [], "assignments": [], "token_confidence": []}
+    perm = torch.from_numpy(_qkv_row_perm(conf["descriptor_dim"],
+                                          conf["num_heads"]))
+    for i in range(conf["n_layers"]):
+        s, c = f"transformers.{i}.self_attn", f"transformers.{i}.cross_attn"
+        qkv = _lin(sd, s + ".Wqkv")
+        params["layers"].append({
+            "self": {"qkv": {"w": qkv["w"][perm], "b": qkv["b"][perm]},
+                     "out": _lin(sd, s + ".out_proj"),
+                     "ffn0": _lin(sd, s + ".ffn.0"),
+                     "ln": ln(s + ".ffn.1"),
+                     "ffn1": _lin(sd, s + ".ffn.3")},
+            "cross": {"to_qk": _lin(sd, c + ".to_qk"),
+                      "to_v": _lin(sd, c + ".to_v"),
+                      "to_out": _lin(sd, c + ".to_out"),
+                      "ffn0": _lin(sd, c + ".ffn.0"),
+                      "ln": ln(c + ".ffn.1"),
+                      "ffn1": _lin(sd, c + ".ffn.3")}})
+        params["assignments"].append({
+            "matchability": _lin(sd, f"log_assignment.{i}.matchability"),
+            "final_proj": _lin(sd, f"log_assignment.{i}.final_proj")})
+        if f"token_confidence.{i}.token.0.weight" in sd:
+            params["token_confidence"].append(
+                _lin(sd, f"token_confidence.{i}.token.0"))
     return params
 
 
@@ -303,10 +395,12 @@ def lighterglue_forward(params: Dict[str, Any], kpts0: torch.Tensor,
 
 class LighterGlue:
     """Inference wrapper. `weights`: a matcher `.npz` path (the JAX
-    package's format; a full train state works too), a JAX-layout numpy
-    tree, or None for random weights drawn from `generator` (seed 0 when
-    none is given). `device` is required: the caller decides where it
-    runs."""
+    package's format; a full train state works too), a training checkpoint
+    directory, a `.pt`/`.pth` path or an in-memory state dict in the
+    kornia LightGlue layout (`import_lighterglue_state_dict`), a
+    JAX-layout numpy tree, or None for random weights drawn from
+    `generator` (seed 0 when none is given). `device` is required: the
+    caller decides where it runs."""
 
     def __init__(self, weights: Optional[Union[str, Mapping[str, Any]]],
                  device: Union[str, torch.device],
@@ -318,6 +412,11 @@ class LighterGlue:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
             params = init_lighterglue_params(generator, self.conf)
+        elif is_torch_file(weights):
+            params = import_lighterglue_state_dict(read_torch_file(weights),
+                                                   self.conf)
+        elif is_state_dict(weights):
+            params = import_lighterglue_state_dict(weights, self.conf)
         else:
             params = load_lighterglue_params(weights)
         self.params = _tree_to(params, self.device)

@@ -15,6 +15,10 @@ then `params_from_jax` turns the tree into torch tensors in torch's own
 layouts: conv weights HWIO -> OIHW, linear weights (in, out) -> (out, in);
 `params_to_jax` turns them back.
 
+`import_torch_state_dict` and `export_torch_state_dict` map the reference
+PyTorch model's state dict (`.pt` files) to and from that numpy tree, as
+the JAX package's functions of the same names do.
+
 `init_xfeat_params` draws a fresh tree in that layout with the JAX
 package's shapes and U(-b, b) bounds (torch's default kaiming-uniform
 scheme), from a `torch.Generator`: the values differ from `jax.random`'s.
@@ -127,6 +131,21 @@ def _unflatten(flat: Mapping[str, Any]):
     return listify(tree)
 
 
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """The inverse of `_unflatten`: nested dicts and lists -> {'a/b/0/w':
+    leaf}, the key layout of the JAX package's `.npz` files."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}{k}/"))
+    return out
+
+
 def load_npz_tree(path: str) -> Dict[str, Any]:
     """Read an extractor `.npz` into the JAX-layout numpy tree. A full
     train-state file contributes only its `params/` subtree."""
@@ -137,6 +156,115 @@ def load_npz_tree(path: str) -> Dict[str, Any]:
         else:
             flat = {k: data[k] for k in data.keys()}
     return _unflatten(flat)
+
+
+def _np32(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype=np.float32)
+
+
+def _conv_from_torch(sd: Mapping[str, Any], key: str) -> np.ndarray:
+    return np.ascontiguousarray(_np32(sd[key]).transpose(2, 3, 1, 0))
+
+
+# index of the plain conv with bias in three Sequentials of the reference
+# model, and the fine matcher's (Linear, BatchNorm1d) indices
+_FINAL_IDX = {"block_fusion": 2, "heatmap_head": 2, "keypoint_head": 3}
+_FINE_IDX = [(0, 1), (3, 4), (6, 7), (9, 10)]
+_FINE_LAST = 12
+
+
+def import_torch_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A reference-format torch state dict (tensor or numpy values) -> the
+    JAX-layout numpy tree, unfolded.
+
+    Key layout of the reference model: BasicLayer i of Sequential `name`
+    keeps its conv at `name.{i}.layer.0` and its BatchNorm running stats
+    at `name.{i}.layer.1`; the final plain convs sit at their Sequential
+    index (`_FINAL_IDX`); `skip1.1` is the skip conv; the fine matcher is
+    Linear at 0, 3, 6, 9, 12 and BatchNorm1d at 1, 4, 7, 10."""
+    params: Dict[str, Any] = {"skip1": {
+        "w": _conv_from_torch(sd, "skip1.1.weight"),
+        "b": _np32(sd["skip1.1.bias"])}}
+    for name in BLOCK_NAMES:
+        layers = []
+        for i in range(len(BLOCK_CONVS[name])):
+            layers.append({
+                "w": _conv_from_torch(sd, f"{name}.{i}.layer.0.weight"),
+                "mean": _np32(sd[f"{name}.{i}.layer.1.running_mean"]),
+                "var": _np32(sd[f"{name}.{i}.layer.1.running_var"])})
+        if name in _FINAL_IDX:
+            i = _FINAL_IDX[name]
+            layers.append({"w": _conv_from_torch(sd, f"{name}.{i}.weight"),
+                           "b": _np32(sd[f"{name}.{i}.bias"])})
+        params[name] = layers
+    mlp = []
+    for li, bi in _FINE_IDX:
+        mlp.append({
+            "w": np.ascontiguousarray(_np32(sd[f"fine_matcher.{li}.weight"]).T),
+            "b": _np32(sd[f"fine_matcher.{li}.bias"]),
+            "mean": _np32(sd[f"fine_matcher.{bi}.running_mean"]),
+            "var": _np32(sd[f"fine_matcher.{bi}.running_var"])})
+    mlp.append({
+        "w": np.ascontiguousarray(
+            _np32(sd[f"fine_matcher.{_FINE_LAST}.weight"]).T),
+        "b": _np32(sd[f"fine_matcher.{_FINE_LAST}.bias"])})
+    params["fine_matcher"] = mlp
+    return params
+
+
+def export_torch_state_dict(params: Mapping[str, Any]
+                            ) -> Dict[str, np.ndarray]:
+    """The inverse of `import_torch_state_dict`: a JAX-layout tree with
+    its BatchNorm running stats -> the reference's state dict, numpy
+    values. A folded tree has lost the stats and raises ValueError."""
+    if "mean" not in params["block1"][0]:
+        raise ValueError("export_torch_state_dict needs an unfolded tree "
+                         "(BatchNorm running stats); load it with "
+                         "fold_bn=False")
+
+    def oihw(w):
+        return np.ascontiguousarray(_np32(w).transpose(3, 2, 0, 1))
+
+    sd: Dict[str, np.ndarray] = {"skip1.1.weight": oihw(params["skip1"]["w"]),
+                                 "skip1.1.bias": _np32(params["skip1"]["b"])}
+    for name in BLOCK_NAMES:
+        for i in range(len(BLOCK_CONVS[name])):
+            p = params[name][i]
+            sd[f"{name}.{i}.layer.0.weight"] = oihw(p["w"])
+            sd[f"{name}.{i}.layer.1.running_mean"] = _np32(p["mean"])
+            sd[f"{name}.{i}.layer.1.running_var"] = _np32(p["var"])
+        if name in _FINAL_IDX:
+            p, i = params[name][-1], _FINAL_IDX[name]
+            sd[f"{name}.{i}.weight"] = oihw(p["w"])
+            sd[f"{name}.{i}.bias"] = _np32(p["b"])
+    for p, (li, bi) in zip(params["fine_matcher"], _FINE_IDX):
+        sd[f"fine_matcher.{li}.weight"] = np.ascontiguousarray(_np32(p["w"]).T)
+        sd[f"fine_matcher.{li}.bias"] = _np32(p["b"])
+        sd[f"fine_matcher.{bi}.running_mean"] = _np32(p["mean"])
+        sd[f"fine_matcher.{bi}.running_var"] = _np32(p["var"])
+    p = params["fine_matcher"][-1]
+    sd[f"fine_matcher.{_FINE_LAST}.weight"] = np.ascontiguousarray(
+        _np32(p["w"]).T)
+    sd[f"fine_matcher.{_FINE_LAST}.bias"] = _np32(p["b"])
+    return sd
+
+
+def is_state_dict(weights: Any) -> bool:
+    """A torch-style state dict: a mapping whose keys hold dots (the
+    JAX-layout tree's keys never do)."""
+    return isinstance(weights, Mapping) and any("." in str(k)
+                                                for k in weights)
+
+
+def read_torch_file(path: str) -> Dict[str, Any]:
+    """A `.pt`/`.pth` state dict, tensors only (`weights_only=True`)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def is_torch_file(weights: Any) -> bool:
+    return isinstance(weights, str) and weights.endswith((".pt", ".pth"))
 
 
 def fold_batchnorm(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -216,10 +344,16 @@ def params_to_jax(tree: Any) -> Any:
 
 def load_params(weights: Union[str, Mapping[str, Any], None],
                 fold_bn: bool = True) -> Dict[str, Any]:
-    """`.npz` path, a training checkpoint directory (its newest
-    checkpoint), JAX-layout numpy tree, or None for a random tree from
-    `init_xfeat_params` (seed 0) -> the port's tensor tree (BatchNorm
-    folded unless `fold_bn=False`)."""
+    """The extractor's weights in any format the JAX package's
+    `api.load_params` reads -> the port's tensor tree (BatchNorm folded
+    unless `fold_bn=False`):
+      - an `.npz` path (a full train state contributes its `params/`);
+      - a training checkpoint directory (its newest checkpoint);
+      - a `.pt`/`.pth` path holding the reference's torch state dict;
+      - an in-memory state dict: a mapping whose keys hold dots, with
+        tensor or numpy values;
+      - a JAX-layout numpy tree;
+      - None: a random tree from `init_xfeat_params` (seed 0)."""
     if weights is None:
         tree = init_xfeat_params()
     elif isinstance(weights, str) and os.path.isdir(weights):
@@ -228,8 +362,12 @@ def load_params(weights: Union[str, Mapping[str, Any], None],
         if path is None:
             raise FileNotFoundError(f"no checkpoint in {weights}")
         tree = load_npz_tree(path)
+    elif is_torch_file(weights):
+        tree = import_torch_state_dict(read_torch_file(weights))
     elif isinstance(weights, str):
         tree = load_npz_tree(weights)
+    elif is_state_dict(weights):
+        tree = import_torch_state_dict(weights)
     else:
         tree = weights
     if fold_bn:

@@ -2,26 +2,43 @@
 matrix products in full float32, and the CPU emulation of the 3xTF32
 tensor-core products of kernels C and D.
 
-Both switches set a process-global torch flag for the duration of a call
-and restore the caller's value after it."""
+Both switches clear a process-global torch flag for the duration of a
+call and restore the caller's value after it. Calls may overlap across
+threads (a server's handlers): the flag stays off while any of them is
+inside, and the value from before the first of them is restored when the
+last one leaves."""
 
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
+
+_LOCK = threading.Lock()
+# (backend, flag) -> [callers inside, the value saved by the first]
+_HOLDERS: dict = {}
 
 
 @contextlib.contextmanager
 def _flag_off(backend, flag: str):
-    """Clear the boolean `backend.flag` for the call and restore the
-    caller's value after it."""
-    prev = getattr(backend, flag)
-    setattr(backend, flag, False)
+    """Clear the boolean `backend.flag` for the call. The first caller to
+    enter saves the flag's value and clears it; the last one to leave
+    restores the saved value. One lock guards the count and the flag."""
+    key = (id(backend), flag)
+    with _LOCK:
+        held = _HOLDERS.setdefault(key, [0, None])
+        if held[0] == 0:
+            held[1] = getattr(backend, flag)
+            setattr(backend, flag, False)
+        held[0] += 1
     try:
         yield
     finally:
-        setattr(backend, flag, prev)
+        with _LOCK:
+            held[0] -= 1
+            if held[0] == 0:
+                setattr(backend, flag, held[1])
 
 
 def full_fp32_convs():

@@ -32,8 +32,8 @@ and compared with the plain version:
      the XFeat* shape (12740 cells, K = 3276); values that differ;
   B: B = 1, the trained extractor's raw 76x100x64 map of the same texture
      at its K = 4096 keypoints; max abs error.
-Each is timed twice, in turns, with `chip_smoke.time_ms` (L2 evicted,
-device time). For each variant it prints ptxas's register and spill
+Each is timed twice, in turns, with `utils/profiling.time_ms` (L2
+evicted, device time). For each variant it prints ptxas's register and spill
 report. A variant that exports `read_dbg(long long[16])` (sums of
 `clock64()` per phase, kept by the kernel in a `__device__` array) gets
 those printed for one call of each timed function.
@@ -57,6 +57,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from accelerated_features_tpu_torch.ops.cuda import (  # noqa: E402
     _build, attention, bicubic, detect_fused, mnn, stem_fused)
+from accelerated_features_tpu_torch.utils.profiling import \
+    time_ms  # noqa: E402
 from accelerated_features_tpu_torch.ops.matching import \
     batch_mnn_match  # noqa: E402
 
@@ -254,7 +256,7 @@ def main() -> int:
                 with torch.no_grad():
                     for label, call, err in by_kernel[kern]:
                         off = err(call())
-                        t = chip_smoke.time_ms(call)
+                        t = time_ms(call)
                         times.setdefault((kern, name, label), []).append(t)
                         if turn == 0:
                             continue

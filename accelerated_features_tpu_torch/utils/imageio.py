@@ -1,8 +1,8 @@
 """Image reading without cv2 or PIL: a PNG decoder on the standard
-library's `zlib` plus numpy (`read_png`), the eval's reader that uses it
-for PNGs and cv2 only for other formats (`imread`, `resize`), and the
-texture-crop loader of the rendered datasets (counterpart of
-`apps/render_depth_dataset.load_textures`).
+library's `zlib` plus numpy (`decode_png` of bytes, `read_png` of a
+file), the eval's reader that uses it for PNGs and cv2 only for other
+formats (`imread`, `resize`), and the texture-crop loader of the rendered
+datasets (counterpart of `apps/render_depth_dataset.load_textures`).
 
 `read_png` returns what `cv2.imread(path)` returns for the files it
 accepts: (H, W, 3) uint8 in BGR order. It accepts 8-bit, non-interlaced
@@ -20,7 +20,7 @@ from typing import List, Tuple, Union
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> bytes a pixel at bit depth 8
 _CHANNELS = {0: 1, 2: 3, 6: 4}
 
@@ -45,12 +45,13 @@ def _unfilter_bytewise(kind: int, line: np.ndarray, prior: np.ndarray,
     return np.frombuffer(bytes(out), np.uint8)
 
 
-def read_png(path: Union[str, Path]) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced gray, RGB or RGBA PNG into an
-    (H, W, 3) uint8 BGR array, as `cv2.imread(path)` does."""
-    data = Path(path).read_bytes()
-    if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+def decode_png(data: bytes) -> np.ndarray:
+    """Decode the bytes of an 8-bit, non-interlaced gray, RGB or RGBA PNG
+    into an (H, W, 3) uint8 BGR array, as `cv2.imdecode(buf,
+    cv2.IMREAD_COLOR)` does; any other PNG, or bytes that are not one,
+    raise ValueError."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -63,18 +64,18 @@ def read_png(path: Union[str, Path]) -> np.ndarray:
             break
         pos += 12 + length
     if header is None or not idat:
-        raise ValueError(f"{path}: no IHDR or IDAT chunk")
+        raise ValueError("no IHDR or IDAT chunk")
     w, h, depth, color, _compression, _filter, interlace = header
     if depth != 8 or color not in _CHANNELS or interlace != 0:
         raise ValueError(
-            f"{path}: unsupported PNG (bit depth {depth}, color type "
+            f"unsupported PNG (bit depth {depth}, color type "
             f"{color}, interlace {interlace}); only 8-bit non-interlaced "
             f"gray, RGB and RGBA are read")
     bpp = _CHANNELS[color]
     stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size < h * (stride + 1):
-        raise ValueError(f"{path}: truncated image data")
+        raise ValueError("truncated image data")
     rows = raw[:h * (stride + 1)].reshape(h, stride + 1)
     img = np.empty((h, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
@@ -90,13 +91,22 @@ def read_png(path: Union[str, Path]) -> np.ndarray:
         elif kind in (3, 4):
             cur = _unfilter_bytewise(kind, line, prior, bpp)
         else:
-            raise ValueError(f"{path}: unknown filter type {kind} in row {y}")
+            raise ValueError(f"unknown filter type {kind} in row {y}")
         img[y] = cur
         prior = img[y]
     img = img.reshape(h, w, bpp)
     if bpp == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., 2::-1])
+
+
+def read_png(path: Union[str, Path]) -> np.ndarray:
+    """Decode an 8-bit, non-interlaced gray, RGB or RGBA PNG file into an
+    (H, W, 3) uint8 BGR array, as `cv2.imread(path)` does."""
+    try:
+        return decode_png(Path(path).read_bytes())
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 def imread(path: Union[str, Path]) -> np.ndarray:

@@ -48,7 +48,14 @@ Run from the root of a checkout. In order, it
      committed state; kernels A, B, D and D's backward counted; a step's
      gradients against the CPU path), and D's backward alone against its
      plain version and float64 autograd;
-  7. times each kernel against its plain version, its bound and, where one
+  7. drives the serving path (`serve_phase`): the trained extractor and
+     matcher written as reference-format `.pt` files, loaded bit-equal to
+     the `.npz` ones, served by `apps/serve.py`'s HTTP server on the card
+     (max_batch 8): a burst of 8 /detect requests as one batched call,
+     two image sizes interleaved, a PNG body, /match in its three modes,
+     /healthz; every answer 200 and equal to the direct call, A-D counted;
+     request walls, bursts against sequences in turns, a profiled burst;
+  8. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function (D's
      backward also at LighterGlue training's shape), and profiles one call
      of each matcher.
@@ -64,6 +71,18 @@ import sys
 import time
 from pathlib import Path
 
+# the port's timers and the H100 SXM peaks (`utils/profiling.py`); outside
+# a checkout there is nothing to import and the run stops here
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+try:
+    from accelerated_features_tpu_torch.utils.profiling import (  # noqa: E402
+        PEAK_BF16_FLOPS as PEAK_BF16, PEAK_F32_FLOPS as PEAK_FP32,
+        PEAK_HBM_BYTES as PEAK_BYTES, PEAK_TF32_FLOPS as PEAK_TF32, bound,
+        median_wall_ms, profile_call, time_ms)
+except ModuleNotFoundError as e:
+    raise SystemExit(f"chip_smoke: run it from a checkout of the repository "
+                     f"({e})")
+
 H, W = 608, 800          # the committed rendered holdout's image size
 TOP_K = 4096
 THR = 0.05
@@ -71,15 +90,6 @@ SHIFT = (24, 16)         # (dx, dy) of the rolled copy
 # the SLAM benchmark's trajectory (`apps/eval_slam.py`'s defaults)
 SLAM_H, SLAM_W, SLAM_K = 480, 640, 2048
 SLAM_FRAMES, SLAM_SEED = 32, 3
-
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32 FLOP/s on
-# the CUDA cores (no tensor cores), dense TF32 and bf16 FLOP/s on the
-# tensor cores. A float32-grade product on the tensor cores takes three TF32
-# products (3xTF32), so its operations count three times against PEAK_TF32.
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-PEAK_TF32 = 495e12
-PEAK_BF16 = 989e12
 
 
 def texture(seed: int, h: int, w: int):
@@ -93,94 +103,55 @@ def texture(seed: int, h: int, w: int):
     return (img / 4 * 255).astype(np.uint8)
 
 
-def time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of one fn() call with a cold L2, over `iters`
-    calls. Before each call a 256 MB write evicts the 50 MB L2, so inputs
-    come from HBM, as `bound` assumes; each call is timed between its own
-    pair of CUDA events. A spin kernel queued first keeps the card busy
-    while the host enqueues everything, so host-side launch cost (Python,
-    ctypes) does not show as device time."""
-    import torch
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    flush.zero_()
-    fn()
-    torch.cuda.synchronize()
-    per_call_s = time.perf_counter() - t0  # host + device, an upper bound
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(int(2e9 * per_call_s * iters * 1.5))  # ~2 GHz cycles
-    for start, end in events:
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters
-
-
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32):
-    """(least time in ms, what bounds it) for moving `nbytes` once and
-    doing `flops` operations on one H100, at the fp32 CUDA-core peak
-    unless another peak is given for the operands' type."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def lighterglue_state_dict(tree, conf) -> dict:
+    """The matcher's JAX-layout numpy tree (linear weights (in, out)) -> a
+    torch state dict of numpy arrays in the published kornia LightGlue
+    layout (`self_attn.{i}` / `cross_attn.{i}` names, weights (out, in),
+    Wqkv's rows with q, k and v interleaved per feature): the inverse of
+    `models.lighterglue.import_lighterglue_state_dict`, which neither
+    package carries, so the serve phase can hand the server a `.pt`."""
+    import numpy as np
+    from accelerated_features_tpu_torch.models.lighterglue import \
+        _qkv_row_perm
+    sd = {}
 
+    def put(name, w, b):
+        sd[name + ".weight"] = np.ascontiguousarray(w, np.float32)
+        sd[name + ".bias"] = np.ascontiguousarray(b, np.float32)
 
-def profile_call(name: str, fn, keep=None):
-    """Print where the time of one fn() call goes, by device kernel, and
-    return fn()'s result. With `keep`, print only when keep(result)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    if keep is not None and not keep(result):
-        return result
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, reach = 0.0, float("-inf")
-    for a, b in spans:  # union of kernel intervals, us
-        if b > reach:
-            busy += b - max(a, reach)
-            reach = b
-    by_name = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    print(f"profile {name}: wall {wall:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms ({len(kernels)} kernels), idle share "
-          f"{1 - busy / 1e3 / wall:.3f}")
-    for kname, (n, t) in sorted(by_name.items(),
-                                key=lambda kv: -kv[1][1])[:15]:
-        print(f"  {t / 1e3:8.4f} ms  x{n:<3d} {kname[:100]}")
-    return result
+    def lin(name, p):
+        put(name, np.asarray(p["w"]).T, p["b"])
 
+    def ffn(prefix, blk):
+        lin(prefix + ".ffn.0", blk["ffn0"])
+        put(prefix + ".ffn.1", blk["ln"]["w"], blk["ln"]["b"])
+        lin(prefix + ".ffn.3", blk["ffn1"])
 
-def median_wall_ms(fn, calls: int = 5):
-    """Host-clock times of `calls` fn() calls, each ended by a device
-    synchronize: (all of them, their median)."""
-    import torch
-    walls = []
-    for _ in range(calls):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    return walls, sorted(walls)[calls // 2]
-
+    lin("input_proj", tree["input_proj"])
+    sd["posenc.Wr.weight"] = np.ascontiguousarray(
+        np.asarray(tree["posenc_wr"], np.float32).T)
+    perm = _qkv_row_perm(conf["descriptor_dim"], conf["num_heads"])
+    for i, layer in enumerate(tree["layers"]):
+        s, c = layer["self"], layer["cross"]
+        w = np.empty_like(np.asarray(s["qkv"]["w"]).T)
+        b = np.empty_like(np.asarray(s["qkv"]["b"]))
+        w[perm], b[perm] = np.asarray(s["qkv"]["w"]).T, s["qkv"]["b"]
+        put(f"self_attn.{i}.Wqkv", w, b)
+        lin(f"self_attn.{i}.out_proj", s["out"])
+        ffn(f"self_attn.{i}", s)
+        for name in ("to_qk", "to_v", "to_out"):
+            lin(f"cross_attn.{i}.{name}", c[name])
+        ffn(f"cross_attn.{i}", c)
+        for name in ("matchability", "final_proj"):
+            lin(f"log_assignment.{i}.{name}", tree["assignments"][i][name])
+    for i, p in enumerate(tree.get("token_confidence", [])):
+        lin(f"token_confidence.{i}.token.0", p)
+    return sd
 
 
 def stem_flops(b: int, h: int, w: int) -> float:
@@ -958,6 +929,326 @@ def train_phase(root: Path, counters: dict) -> dict:
     return out
 
 
+def serve_phase(root: Path, counters: dict) -> dict:
+    """The serving path on the card: the port's HTTP server
+    (`apps/serve.py`) with reference-format torch `.pt` weights.
+
+    The trained extractor and matcher are written from the committed
+    `.npz` files into a temporary directory as `.pt` state dicts (the
+    extractor by `export_torch_state_dict`, the matcher by
+    `lighterglue_state_dict`); `XFeat` and `LighterGlue` from the `.pt` and
+    from the `.npz` must hold bit-equal weights. Then `serve(port=0,
+    weights=<.pt>, top_k=4096, max_batch=8, max_wait_ms=200,
+    lg_weights=<.pt>)` runs on a thread and answers: 8 concurrent /detect
+    requests of seeded 800x608 textures released together (one batched
+    call: one launch each of A and B; each answer equal to
+    detectAndCompute of the stack the server ran); 640x480 and 800x608
+    requests interleaved (one bucket a shape, each answer equal to its
+    direct call); a holdout image as a PNG body; the holdout pair at
+    /match in modes mnn, star and lighterglue (equal to match_xfeat,
+    match_xfeat_star and match_lighterglue on the same XFeat; C launched
+    by mnn and star, D 24 times by lighterglue); /healthz (its count equal
+    to the requests sent). Every answer must be 200. Prints, beside the
+    card's name and power limit, the request walls of 32 sequential
+    /detect requests, the throughput of 8-request bursts against 8
+    sequential requests in turns, and a profile of one burst. Returns the
+    launches of the served requests."""
+    import io
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch import XFeat
+    from accelerated_features_tpu_torch.apps.eval_slam import device_label
+    from accelerated_features_tpu_torch.apps.serve import serve
+    from accelerated_features_tpu_torch.eval.megadepth1500 import load_pairs
+    from accelerated_features_tpu_torch.models.lighterglue import (
+        DEFAULT_CONF, LighterGlue)
+    from accelerated_features_tpu_torch.models.params import (
+        export_torch_state_dict, flatten_tree, load_npz_tree)
+    from accelerated_features_tpu_torch.utils.imageio import read_png
+
+    dev = torch.device("cuda")
+    label = device_label(dev)
+    npz = root / "artifacts" / "run_md_ckpt13250.npz"
+    lg_npz = root / "artifacts" / "lighterglue_ft_ckpt7791.npz"
+    holdout = root / "artifacts" / "rendered_pose_holdout"
+
+    def tensors(sd):
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items()}
+
+    def same_tree(a, b):
+        fa, fb = flatten_tree(a), flatten_tree(b)
+        return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k])
+                                              for k in fa)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    pt, lg_pt = Path(tmp.name) / "xfeat.pt", Path(tmp.name) / "lg.pt"
+    torch.save(tensors(export_torch_state_dict(load_npz_tree(str(npz)))),
+               pt)
+    torch.save(tensors(lighterglue_state_dict(load_npz_tree(str(lg_npz)),
+                                              DEFAULT_CONF)), lg_pt)
+    check(same_tree(XFeat(str(pt), device=dev).model.params,
+                    XFeat(str(npz), device=dev).model.params),
+          "XFeat from the .pt and from the .npz hold different weights")
+    check(same_tree(LighterGlue(str(lg_pt), dev).params,
+                    LighterGlue(str(lg_npz), dev).params),
+          "LighterGlue from the .pt and from the .npz differ")
+    print(f"serve: .pt weights written ({pt.stat().st_size} and "
+          f"{lg_pt.stat().st_size} bytes); XFeat and LighterGlue from .pt "
+          f"equal to .npz, bit for bit")
+
+    httpd = serve(port=0, weights=str(pt), top_k=TOP_K, max_batch=8,
+                  max_wait_ms=200.0, lg_weights=str(lg_pt))
+    service, xf = httpd.service, httpd.service.xfeat
+    port = httpd.server_address[1]
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    sent = [0]
+    totals = {k: 0 for k in counters}
+
+    def npz_body(**arrays):
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        return buf.getvalue()
+
+    def post(path, body):
+        sent[0] += 1
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                check(r.status == 200, f"{path} answered {r.status}")
+                return np.load(io.BytesIO(r.read()))
+        except urllib.error.HTTPError as e:
+            raise SystemExit(f"chip_smoke: FAILED: {path} answered {e.code}: "
+                             f"{e.read()[:500]!r}")
+
+    def counted(fn):
+        """fn()'s result and the kernel launches it caused; added to the
+        phase's totals."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        for k, n in got.items():
+            totals[k] += n
+        return out, got
+
+    def burst(bodies, path="/detect"):
+        """All bodies at once, released together by a barrier."""
+        results = [None] * len(bodies)
+        gate = threading.Barrier(len(bodies))
+
+        def call(i):
+            gate.wait(60)
+            results[i] = post(path, bodies[i])
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+            check(not t.is_alive(), "a request thread did not finish")
+        check(all(r is not None for r in results), "a request failed")
+        return results
+
+    batches = []
+
+    def record_batches():
+        real = XFeat.detectAndCompute
+
+        def recorded(x, *a, **kw):
+            batches.append(x.clone())
+            return real(xf, x, *a, **kw)
+        xf.detectAndCompute = recorded
+
+    def same_as(resp, ref, what):
+        for k in ("keypoints", "scores", "descriptors"):
+            check(np.array_equal(resp[k], ref[k].cpu().numpy()),
+                  f"{what}: {k} differs from the direct call")
+
+    def direct_by_image():
+        """detectAndCompute of each recorded batch, by image bytes."""
+        del xf.detectAndCompute
+        out = {}
+        for b in batches:
+            for im, res in zip(b, xf.detectAndCompute(b)):
+                out[im.cpu().numpy().tobytes()] = res
+        batches.clear()
+        return out
+
+    def rgb(gray):
+        return np.repeat(gray[..., None], 3, -1)
+
+    try:
+        # ---- 8 concurrent /detect: one batched call ------------------------
+        imgs = [texture(100 + i, H, W) for i in range(8)]
+        bodies = [npz_body(image=im) for im in imgs]
+        record_batches()
+        res, n = counted(lambda: burst(bodies))
+        check([tuple(b.shape) for b in batches] == [(8, H, W, 3)],
+              f"the burst ran as {[tuple(b.shape) for b in batches]}")
+        check(n["detect_fused"] == 1 and n["bicubic"] == 1,
+              f"the burst of 8 launched {n}, not one A and one B")
+        direct = direct_by_image()
+        for i, (r, im) in enumerate(zip(res, imgs)):
+            same_as(r, direct[rgb(im).tobytes()], f"burst request {i}")
+        print(f"serve: 8 concurrent /detect {W}x{H} served by one call of "
+              f"batch 8, launches {n}; each answer equal to the direct "
+              f"call on that stack")
+
+        # ---- 640x480 and 800x608 interleaved ------------------------------
+        mixed = [texture(200, 480, 640), texture(201, H, W),
+                 texture(202, 480, 640), texture(203, H, W)]
+        record_batches()
+        res, n = counted(lambda: burst([npz_body(image=im)
+                                        for im in mixed]))
+        shapes = sorted(tuple(b.shape) for b in batches)
+        check(all(len({tuple(im.shape) for im in b}) == 1 for b in batches)
+              and {s_[1:3] for s_ in shapes} == {(480, 640), (H, W)},
+              f"interleaved shapes ran as {shapes}")
+        direct = direct_by_image()
+        for i, (r, im) in enumerate(zip(res, mixed)):
+            same_as(r, direct[rgb(im).tobytes()], f"interleaved request {i}")
+        print(f"serve: 640x480 and {W}x{H} interleaved, 4 requests, ran as "
+              f"{shapes}, launches {n}; each equal to its direct call")
+
+        # ---- the holdout pair: PNG body, then /match in three modes -------
+        pair = load_pairs(str(holdout / "rendered_pose_pairs.json"))[0]
+        paths = [holdout / n_ for n_ in pair["pair_names"]]
+        ims = [read_png(p_) for p_ in paths]
+        r, n = counted(lambda: post("/detect", paths[0].read_bytes()))
+        same_as(r, xf.detectAndCompute(ims[0])[0], "PNG body")
+        print(f"serve: holdout PNG body ({len(r['keypoints'])} keypoints), "
+              f"launches {n}, equal to the direct call")
+        body = npz_body(image0=ims[0], image1=ims[1])
+        size = ims[0].shape[1::-1]
+        for mode in ("mnn", "star", "lighterglue"):
+            r, n = counted(lambda: post(f"/match?mode={mode}", body))
+            if mode == "mnn":
+                ref = xf.match_xfeat(ims[0], ims[1])
+                check(n["mnn"] == 1, f"mode=mnn launched {n}")
+            elif mode == "star":
+                ref = xf.match_xfeat_star(ims[0], ims[1])
+                check(n["mnn"] >= 1, f"mode=star launched {n}")
+            else:
+                d0, d1 = (xf.detectAndCompute(im)[0] for im in ims)
+                d0["image_size"] = d1["image_size"] = size
+                ref = [m_.cpu().numpy()
+                       for m_ in xf.match_lighterglue(d0, d1)[:2]]
+                check(n["attention"] == 4 * DEFAULT_CONF["n_layers"],
+                      f"mode=lighterglue launched {n}")
+            check(np.array_equal(r["mkpts0"], ref[0])
+                  and np.array_equal(r["mkpts1"], ref[1]),
+                  f"/match?mode={mode} differs from the direct call")
+            print(f"serve: /match?mode={mode} holdout pair, "
+                  f"{len(r['mkpts0'])} matches, launches {n}; equal to the "
+                  f"direct call")
+
+        # ---- /healthz ------------------------------------------------------
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as h:
+            health = json.loads(h.read())
+        check(health == {"ok": True, "backend": torch.cuda.get_device_name(
+            dev), "served": sent[0]}, f"/healthz says {health}, "
+              f"{sent[0]} requests were sent")
+        print(f"serve: /healthz {health}")
+        launches = dict(totals)
+        check(all(launches[k] > 0 for k in ("detect_fused", "bicubic", "mnn",
+                                            "attention", "topk_exact")),
+              f"a kernel was not launched on the serving path: {launches}")
+
+        # ---- walls: sequential requests, bursts against sequences ----------
+        timed = [npz_body(image=texture(300 + i, H, W)) for i in range(8)]
+
+        def sequential(k):
+            walls = []
+            for i in range(k):
+                t0 = time.perf_counter()
+                post("/detect", timed[i % 8])
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return walls
+
+        service.max_wait = 0.0  # a lone request does not wait for others
+        sequential(4)
+        walls = sorted(sequential(32))
+        print(f"serve: 32 sequential /detect {W}x{H} (batching window 0 "
+              f"ms): median {walls[16]} ms, p90 {walls[28]} ms, min "
+              f"{walls[0]} ms, max {walls[-1]} ms; {label}")
+        # the owner thread's share: the direct call on the same images, its
+        # results copied to numpy as the server does, from this thread
+        stack = torch.from_numpy(np.stack([rgb(texture(300 + i, H, W))
+                                           for i in range(8)]))
+
+        def direct(b):
+            return [{k: v.cpu().numpy() for k, v in o.items()}
+                    for o in xf.detectAndCompute(stack[:b].to(dev))]
+        one, one_med = median_wall_ms(lambda: direct(1), calls=9)
+        eight, eight_med = median_wall_ms(lambda: direct(8), calls=5)
+        print(f"serve: the direct call with the upload and the copies to "
+              f"numpy, median of 9 at batch 1 {one_med} ms (so HTTP, npz "
+              f"and threads add {walls[16] - one_med} ms to a lone "
+              f"request); at batch 8, median of 5, {eight_med} ms; {label}")
+        # where a burst's time goes: the owner thread's call (its start and
+        # end after the burst's start), before it the requests' arrival
+        # and host decoding, after it the answers' npz and transfer
+        runs, real_run = [], service._run
+
+        def timed_run(group):
+            t_ = time.perf_counter()
+            real_run(group)
+            runs.append((len(group), t_, time.perf_counter()))
+        service._run = timed_run
+        turns = []
+        for mode in ("sequential", "burst", "burst", "sequential"):
+            service.max_wait = 0.2 if mode == "burst" else 0.0
+            runs.clear()
+            t0 = time.perf_counter()
+            if mode == "burst":
+                burst(timed)
+            else:
+                sequential(8)
+            t1 = time.perf_counter()
+            turns.append((mode, 8 / (t1 - t0)))
+            if mode == "burst":
+                check([n_ for n_, _, _ in runs] == [8],
+                      f"a timed burst ran as batches {runs}")
+                _, a, b = runs[0]
+                print(f"serve: a burst of 8, {(t1 - t0) * 1e3} ms: requests "
+                      f"in and decoded {(a - t0) * 1e3} ms, the owner "
+                      f"thread's call of batch 8 {(b - a) * 1e3} ms, answers "
+                      f"out and read {(t1 - b) * 1e3} ms; {label}")
+        del service._run
+        print(f"serve: 8 /detect {W}x{H} requests, images a second in turns "
+              f"(burst: window 200 ms, one call of batch 8; sequential: "
+              f"window 0): {turns}; {label}")
+        service.max_wait = 0.2
+        for c in counters.values():
+            c.launches = 0
+        profile_call(f"serve burst of 8 /detect {W}x{H} (client wall; the "
+                     f"kernels run on the owner thread)",
+                     lambda: burst(timed))
+        check(counters["detect_fused"].launches == 1,
+              "the profiled burst was not one batched call")
+        print(f"serve: requests sent {sent[0]}, served "
+              f"{service.served}; {label}")
+    finally:
+        service.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        server_thread.join(30)
+        tmp.cleanup()
+    return {"launches": launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -973,7 +1264,6 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(root))
     import torch.nn.functional as F
 
     from accelerated_features_tpu_torch import XFeat, xfeat_forward
@@ -1670,6 +1960,9 @@ def main() -> int:
     # ---- the training path --------------------------------------------------
     train = train_phase(root, counters)
 
+    # ---- the serving path ---------------------------------------------------
+    served = serve_phase(root, counters)
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
@@ -1960,6 +2253,9 @@ def main() -> int:
                 "max_abs_err_640x480": slam["errs"][name],
                 "ms_640x480": ms, "plain_ms_640x480": pms,
                 "bound_ms_640x480": bms, "bound_by_640x480": by})
+    for row in rows:  # launches of the serve phase's requests
+        if row["name"] in served["launches"]:
+            row["launches_serve"] = served["launches"][row["name"]]
     for row in rows:  # launches in the 3 LighterGlue training steps
         if row["name"] in train["lg_launches"] and \
                 row["name"] != "attention_backward":

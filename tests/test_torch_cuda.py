@@ -743,3 +743,78 @@ def test_bundle_adjust_on_the_card_matches_the_cpu(dev):
     assert (got.cams.cpu() - want.cams).abs().max() <= \
         1e-4 * want.cams.abs().max()
     assert float(reprojection_rmse(got)) < 1.5
+
+
+def test_server_on_the_card_answers_like_direct_calls(dev):
+    """The port's HTTP server on `cuda` (its default device) with the
+    trained extractor: /detect of two images released together (one batch)
+    and /match?mode=mnn equal, under np.array_equal, to direct calls on the
+    same XFeat (detectAndCompute of the batch the server ran; match_xfeat);
+    kernels A and B ran once for the batch, C for the match."""
+    import io
+    import threading
+    import urllib.request
+
+    from accelerated_features_tpu_torch.apps.serve import serve
+    from accelerated_features_tpu_torch.ops.cuda.detect_fused import \
+        topk_keypoints_fused
+
+    ckpt = str(Path(__file__).resolve().parents[1] / "artifacts"
+               / "run_md_ckpt13250.npz")
+    httpd = serve(port=0, weights=ckpt, top_k=512, max_batch=2,
+                  max_wait_ms=2000.0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    xf = httpd.service.xfeat
+    port = httpd.server_address[1]
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
+            for _ in range(2)]
+
+    def post(path, **arrays):
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                     data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return np.load(io.BytesIO(r.read()))
+
+    batches, real = [], type(xf).detectAndCompute
+
+    def recorded(x, *a, **kw):
+        batches.append(x.clone())
+        return real(xf, x, *a, **kw)
+
+    try:
+        xf.detectAndCompute = recorded
+        results = [None, None]
+        n = topk_keypoints_fused.launches
+        threads = [threading.Thread(
+            target=lambda i=i: results.__setitem__(i, post("/detect",
+                                                           image=imgs[i])))
+            for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert [tuple(b.shape) for b in batches] == [(2, 240, 320, 3)]
+        assert topk_keypoints_fused.launches == n + 1
+        del xf.detectAndCompute
+        direct = {im.cpu().numpy().tobytes(): d
+                  for im, d in zip(batches[0], xf.detectAndCompute(
+                      batches[0]))}
+        for res, im in zip(results, imgs):
+            for k in ("keypoints", "scores", "descriptors"):
+                np.testing.assert_array_equal(
+                    res[k], direct[im.tobytes()][k].cpu().numpy())
+        m = mnn.batch_mnn_match_fused.launches
+        out = post("/match?mode=mnn", image0=imgs[0], image1=imgs[1])
+        assert mnn.batch_mnn_match_fused.launches == m + 1
+        ref = xf.match_xfeat(imgs[0], imgs[1])
+        np.testing.assert_array_equal(out["mkpts0"], ref[0])
+        np.testing.assert_array_equal(out["mkpts1"], ref[1])
+    finally:
+        httpd.service.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(30)
