@@ -14,7 +14,10 @@ functions with PyTorch and hand-written CUDA kernels for Hopper
 from .api import XFeat
 from .models.backbone import xfeat_forward
 from .models.lighterglue import LighterGlue, lighterglue_forward
-from .models.params import load_lighterglue_params, params_from_jax
+from .models.params import (fold_batchnorm, import_torch_state_dict,
+                            init_xfeat_params, load_lighterglue_params,
+                            params_from_jax)
 
 __all__ = ["XFeat", "LighterGlue", "xfeat_forward", "lighterglue_forward",
+           "init_xfeat_params", "import_torch_state_dict", "fold_batchnorm",
            "params_from_jax", "load_lighterglue_params"]

@@ -101,6 +101,9 @@ class XFeat:
     (`models.params.init_xfeat_params`, seed 0; the JAX package's shapes
     and bounds, drawn by torch, so other values). The default is the
     repository's trained extractor.
+    The positional parameters are the JAX package's (`weights`, `top_k`,
+    `detection_threshold`, `compute_dtype`, `fused_matching`); `device`
+    and `fused_stem` are keywords.
     `compute_dtype`: "float32" or "bfloat16", the backbone's dtype;
     selection, descriptors and matching stay float32.
     `fused_stem`: run the backbone's stem as the fused stem kernel (its
@@ -113,9 +116,10 @@ class XFeat:
     def __init__(self,
                  weights: Weights = DEFAULT_WEIGHTS,
                  top_k: int = 4096, detection_threshold: float = 0.05,
+                 compute_dtype: str = "float32",
+                 fused_matching: Optional[bool] = None, *,
                  device: Optional[Union[str, torch.device]] = None,
-                 compute_dtype: str = "float32", fused_stem: bool = False,
-                 fused_matching: Optional[bool] = None):
+                 fused_stem: bool = False):
         self.device = resolve_device(device)
         self.top_k = top_k
         self.detection_threshold = detection_threshold

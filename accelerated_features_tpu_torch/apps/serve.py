@@ -19,8 +19,9 @@ One process owns the card; many clients submit images over HTTP.
 
 Endpoints:
   POST /detect      body = npz with array 'image' (H,W[,C]) uint8/float,
-                    an npy array, or PNG bytes (decoded without cv2; other
-                    image formats need cv2); query ?top_k=&threshold=
+                    an npy array, or PNG or JPEG bytes (decoded without
+                    cv2; other image formats need cv2); query
+                    ?top_k=&threshold=
                     -> keypoints, scores, descriptors
   POST /match       body = npz with 'image0', 'image1' -> mkpts0, mkpts1;
                     ?mode=mnn (default) | star | lighterglue (the server
@@ -57,7 +58,8 @@ import numpy as np
 import torch
 
 from ..api import XFeat, parse_input_host
-from ..utils.imageio import PNG_SIGNATURE, decode_png
+from ..utils.imageio import (JPEG_SOI, PNG_SIGNATURE, decode_jpeg,
+                             decode_png)
 
 MATCH_KINDS = {"mnn": "match_mnn", "star": "match_star",
                "lighterglue": "match_lg", "lg": "match_lg"}
@@ -213,8 +215,9 @@ class InferenceService:
 
 
 def _decode_image(body: bytes) -> np.ndarray:
-    """An npy array, the 'image' of an npz, a PNG by `decode_png`, or any
-    other image format by cv2 when cv2 can be imported."""
+    """An npy array, the 'image' of an npz, a PNG by `decode_png`, a JPEG
+    by `decode_jpeg`, or any other image format by cv2 when cv2 can be
+    imported."""
     if body[:6] == b"\x93NUMPY" or body[:2] == b"PK":   # .npy / .npz
         data = np.load(io.BytesIO(body), allow_pickle=False)
         if isinstance(data, np.ndarray):
@@ -223,11 +226,14 @@ def _decode_image(body: bytes) -> np.ndarray:
             return data["image"]
     if body[:8] == PNG_SIGNATURE:
         return decode_png(body)
+    if body[:2] == JPEG_SOI:
+        return decode_jpeg(body)
     try:
         import cv2
     except ImportError:
-        raise ValueError("the body is not .npy, .npz or PNG, and other "
-                         "image formats need cv2, which is not installed")
+        raise ValueError("the body is not .npy, .npz, PNG or JPEG, and "
+                         "other image formats need cv2, which is not "
+                         "installed")
     img = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
     if img is None:
         raise ValueError("the body is neither .npy/.npz nor a decodable "

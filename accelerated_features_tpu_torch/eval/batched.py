@@ -39,7 +39,7 @@ def extract_features_batched(params: Dict[str, Any],
     size (bucketed by actual shape, each file decoded once, buckets
     flushed as they fill). `params` is the port's tensor tree; the batches
     run on its device. Returns {key: (kpts, descs, valid)} as numpy. PNGs
-    are read without cv2 (`utils/imageio`)."""
+    and JPEGs are read and resized without cv2 (`utils/imageio`)."""
     if compute_dtype is None:
         compute_dtype = torch.float32    # per-pair-path parity default
     device = params["skip1"]["w"].device

@@ -21,8 +21,9 @@ Run on the committed rendered holdout (150 pairs, 800x608):
         --matcher xfeat --weights artifacts/run_md_ckpt13250.npz \
         --top_k 2048 --limit 100 [--pose_backend gpu] [--device cpu]
 
-PNGs are read by `utils/imageio.read_png`, without cv2; other formats
-and resizing to a stored eval size need `cv2`, imported only then.
+PNGs and JPEGs are read, and resized to a stored eval size, by
+`utils/imageio` without cv2; other formats need `cv2`, imported only
+then.
 """
 
 from __future__ import annotations
@@ -135,11 +136,15 @@ def run_benchmark(matcher_fn: MatcherFn, data_root: str,
     return _summary(errors)
 
 
+def _pose_job(args) -> Dict[str, float]:
+    return compute_pose_error(*args)
+
+
 def run_benchmark_batched(data_root: str, json_path: str = DEFAULT_JSON,
                           top_k: int = 4096, weights: Optional[str] = None,
                           batch_size: int = 8, ransac_thr: float = 2.5,
                           limit: Optional[int] = None, progress: bool = True,
-                          pose_backend: str = "posekit",
+                          pose_backend: str = "posekit", workers: int = 0,
                           detection_threshold: float = 0.05,
                           compute_dtype: Optional[torch.dtype] = None,
                           fused_stem: bool = False, device: Device = None
@@ -148,11 +153,18 @@ def run_benchmark_batched(data_root: str, json_path: str = DEFAULT_JSON,
     stored size, runs batched `detect_and_compute` per bucket and the
     batched masked MNN over the pairs; resize, rescale, thresholds and
     metric are those of `run_benchmark`. `weights` None is the
-    repository's trained extractor."""
+    repository's trained extractor. `workers` > 1 spreads posekit over a
+    spawn pool of that many processes (each builds or loads the library
+    at its first call); the device backend runs in this process only."""
     from ..api import DEFAULT_WEIGHTS, XFeat
     from .batched import extract_features_batched, match_pairs_batched
 
-    xf = XFeat(weights or DEFAULT_WEIGHTS, top_k, detection_threshold, device)
+    if workers > 1 and pose_backend != "posekit":
+        raise ValueError(f"pose_backend={pose_backend!r} runs on one device "
+                         f"in this process; use workers <= 1")
+
+    xf = XFeat(weights or DEFAULT_WEIGHTS, top_k, detection_threshold,
+               device=device)
     pairs = load_pairs(json_path)
     if limit:
         pairs = pairs[:limit]
@@ -181,10 +193,17 @@ def run_benchmark_batched(data_root: str, json_path: str = DEFAULT_JSON,
         feats, [(side_key[i][0], side_key[i][1])
                 for i in range(len(pairs))], batch_size, device=xf.device)
 
-    errors = [compute_pose_error(pairs[i], matches[i][0], matches[i][1],
-                                 scales[i][0], scales[i][1], ransac_thr,
-                                 pose_backend, xf.device)
-              for i in range(len(pairs))]
+    jobs = [(pairs[i], matches[i][0], matches[i][1], scales[i][0],
+             scales[i][1], ransac_thr, pose_backend, str(xf.device))
+            for i in range(len(pairs))]
+    if workers > 1:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(max_workers=workers,
+                                 mp_context=mp.get_context("spawn")) as ex:
+            errors = list(ex.map(_pose_job, jobs, chunksize=8))
+    else:
+        errors = [_pose_job(j) for j in jobs]
     return _summary(errors)
 
 
@@ -253,6 +272,8 @@ def main():
                     help="size-bucketed batched extraction + batched MNN "
                          "(sparse xfeat only; identical protocol)")
     ap.add_argument("--batch_size", type=int, default=8)
+    ap.add_argument("--workers", type=int, default=0,
+                    help="spawn-pool size for posekit in --batched mode")
     ap.add_argument("--compute_dtype", type=str, default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--fused_stem", action="store_true",
@@ -269,7 +290,7 @@ def main():
             args.data_root, args.json, top_k=args.top_k,
             weights=args.weights, batch_size=args.batch_size,
             ransac_thr=args.ransac_thr, limit=args.limit,
-            pose_backend=args.pose_backend,
+            pose_backend=args.pose_backend, workers=args.workers,
             compute_dtype=getattr(torch, args.compute_dtype),
             fused_stem=args.fused_stem, device=args.device)
     else:

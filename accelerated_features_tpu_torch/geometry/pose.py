@@ -5,78 +5,37 @@ of a homography (counterpart of the JAX package's `geometry/pose.py`, with
 its signatures, defaults and numpy types).
 
 posekit is host code: numpy in, numpy out, no device. The library is
-compiled at first use with g++ (`CXX` and `CXXFLAGS` are honoured, as
-`native/Makefile` does) from the repository's `native/posekit.cpp` into
-the port's git-ignored `_build/`, under a name keyed by the hash of the
-source, the compiler, its flags and the host's CPU (`-march=native` code
-from another machine may not run here); it is built into a temporary file
-and renamed into place, so concurrent first uses never load a half-written
-library. Nothing is written under `native/`, and no prebuilt library is
-ever loaded in its place: a failed build raises the compiler's output.
+compiled at first use with g++ from the repository's `native/posekit.cpp`
+by `utils/native.py`, into the port's git-ignored `_build/` (nothing is
+written under `native/`, and no prebuilt library is ever loaded in its
+place: a failed build raises the compiler's output).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import platform
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PKG_DIR.parent / "native" / "posekit.cpp"
-BUILD_ROOT = PKG_DIR / "_build"
-DEFAULT_CXXFLAGS = "-O3 -march=native -fPIC -std=c++17"
+from ..utils import native
+
+SOURCE = native.PKG_DIR.parent / "native" / "posekit.cpp"
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _DOUBLES = ctypes.POINTER(ctypes.c_double)
 
 
-def _compiler() -> List[str]:
-    cxx = os.environ.get("CXX", "g++")
-    return [cxx, *os.environ.get("CXXFLAGS", DEFAULT_CXXFLAGS).split(),
-            "-shared"]
-
-
-def _host_cpu() -> str:
-    """The CPU's model and feature flags, as far as the host tells them."""
-    try:
-        with open("/proc/cpuinfo") as f:
-            lines = [ln for ln in f if ln.startswith(("model name", "flags"))]
-        return "".join(lines[:2])
-    except OSError:
-        return platform.machine() + platform.processor()
-
-
 def library_path() -> Path:
     """Where the library of this source, compiler, flags and CPU lives."""
-    h = hashlib.sha256(" ".join(_compiler()).encode())
-    h.update(_host_cpu().encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_ROOT / f"libposekit-{h.hexdigest()[:16]}.so"
+    return native.library_path(SOURCE, "posekit")
 
 
 def _build(path: Path) -> None:
-    path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run([*_compiler(), "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"posekit build failed "
-                               f"({' '.join(_compiler())}):\n{proc.stderr}")
-        os.replace(tmp, path)  # atomic: no half-written library
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    native.build(path, SOURCE, "posekit")
 
 
 def _lib() -> ctypes.CDLL:

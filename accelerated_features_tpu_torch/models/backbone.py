@@ -89,6 +89,22 @@ def _basic(p: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
     return F.relu(_batch_norm(_conv(x, p, stride), (0, 2, 3), stats_out))
 
 
+def space_to_depth(x: torch.Tensor, ws: int = 8) -> torch.Tensor:
+    """(B,H,W,C) -> (B,H/ws,W/ws,ws*ws*C), channel 8*dy + dx for C = 1
+    (the reference's `_unfold2d` order; NHWC as in the JAX package)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // ws, w // ws, ws * ws * c)
+
+
+def upsample_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]
+                      ) -> torch.Tensor:
+    """(B,H,W,C) -> (B,h,w,C), half-pixel bilinear (torch
+    `align_corners=False`); NHWC as in the JAX package."""
+    return _upsample(x.permute(0, 3, 1, 2), tuple(out_hw)) \
+        .permute(0, 2, 3, 1).contiguous()
+
+
 def input_norm(x: torch.Tensor) -> torch.Tensor:
     """(B,H,W,C) -> (B,1,H,W): channel mean, then instance norm with the
     biased variance."""

@@ -357,11 +357,8 @@ def load_params(weights: Union[str, Mapping[str, Any], None],
     if weights is None:
         tree = init_xfeat_params()
     elif isinstance(weights, str) and os.path.isdir(weights):
-        from ..utils.checkpoint import latest_checkpoint
-        path = latest_checkpoint(weights)
-        if path is None:
-            raise FileNotFoundError(f"no checkpoint in {weights}")
-        tree = load_npz_tree(path)
+        from ..utils.checkpoint import checkpoint_params_tree
+        tree = checkpoint_params_tree(weights)
     elif is_torch_file(weights):
         tree = import_torch_state_dict(read_torch_file(weights))
     elif isinstance(weights, str):
@@ -383,10 +380,9 @@ def load_lighterglue_params(weights: Union[str, Mapping[str, Any]]
     Linear weights become (out, in); `posenc_wr` keeps its (2, D/2) layout
     and `token_confidence` is carried across unread."""
     if isinstance(weights, str) and os.path.isdir(weights):
-        from ..utils.checkpoint import latest_checkpoint
-        path = latest_checkpoint(weights)
-        if path is None:
-            raise FileNotFoundError(f"no checkpoint in {weights}")
-        weights = path
-    tree = load_npz_tree(weights) if isinstance(weights, str) else weights
+        from ..utils.checkpoint import checkpoint_params_tree
+        tree = checkpoint_params_tree(weights)
+    else:
+        tree = load_npz_tree(weights) if isinstance(weights, str) \
+            else weights
     return params_from_jax(tree)

@@ -24,6 +24,19 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def resize_nearest_torch(x: torch.Tensor, out_hw: Tuple[int, int]
+                         ) -> torch.Tensor:
+    """(B,H,W,C) -> (B,h,w,C) by torch `F.interpolate(mode='nearest')`'s
+    rule: source index = floor(dst * in/out), in float32."""
+    _, h, w, _ = x.shape
+    oh, ow = out_hw
+    ys = torch.floor(torch.arange(oh, dtype=torch.float32, device=x.device)
+                     * (h / oh)).long()
+    xs = torch.floor(torch.arange(ow, dtype=torch.float32, device=x.device)
+                     * (w / ow)).long()
+    return x[:, ys][:, :, xs]
+
+
 def preprocess_shape(h: int, w: int) -> Tuple[int, int, float, float]:
     """Round a shape down to /32. Returns (_H, _W, rh, rw), with rh/rw
     mapping resized coordinates back to the input."""

@@ -12,7 +12,7 @@ version of the descriptor kernel in `ops/cuda/bicubic.py`.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -99,3 +99,46 @@ def sample_bicubic(maps: torch.Tensor, pos: torch.Tensor,
         row = row * wy[j][..., None]
         out = row if out is None else out + row
     return out
+
+
+def sample_bicubic_matmul(maps: torch.Tensor, pos: torch.Tensor,
+                          ref_hw: Tuple[int, int],
+                          compute_dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """`sample_bicubic` written as two contractions with banded (K,h) and
+    (K,w) weight matrices, in `compute_dtype` (the JAX package's MXU form,
+    with its bfloat16 default); out-of-bounds taps get no weight. Plain
+    torch: on the card kernel B computes this function."""
+    b, h, w, _ = maps.shape
+    ix, iy = _source_coords(pos, ref_hw, (h, w))
+    x0 = torch.floor(ix).long()
+    y0 = torch.floor(iy).long()
+    wx = torch.stack(_cubic_weights(ix - x0), dim=-1)   # (B, K, 4)
+    wy = torch.stack(_cubic_weights(iy - y0), dim=-1)
+    yy = torch.arange(h, device=maps.device)
+    xx = torch.arange(w, device=maps.device)
+    sy = torch.zeros((b, pos.shape[1], h), dtype=compute_dtype,
+                     device=maps.device)
+    sx = torch.zeros((b, pos.shape[1], w), dtype=compute_dtype,
+                     device=maps.device)
+    for d in range(4):
+        sy = sy + (wy[..., d, None]
+                   * (yy == (y0 + d - 1)[..., None])).to(compute_dtype)
+        sx = sx + (wx[..., d, None]
+                   * (xx == (x0 + d - 1)[..., None])).to(compute_dtype)
+    rows = torch.einsum("bkh,bhwc->bkwc", sy, maps.to(compute_dtype))
+    return torch.einsum("bkw,bkwc->bkc", sx, rows).float()
+
+
+_MODES: Dict[str, Callable[..., torch.Tensor]] = {
+    "nearest": sample_nearest,
+    "bilinear": sample_bilinear,
+    "bicubic": sample_bicubic,
+}
+
+
+def interpolate_sparse2d(maps: torch.Tensor, pos: torch.Tensor, H: int,
+                         W: int, mode: str = "bicubic") -> torch.Tensor:
+    """The reference's `InterpolateSparse2d.forward`: sample (B,h,w,C) maps
+    at (B,N,2) xy positions of an (H, W) frame by `mode`."""
+    return _MODES[mode](maps, pos, (H, W))

@@ -1,10 +1,10 @@
 """Training image sources of the port: the synthetic source of the JAX
 package's `train/megadepth.py` (`ImageFolderSource`).
 
-The MegaDepth depth loader of that module reads HDF5 depth maps and
-resizes with cv2, neither of which the port can count on; it waits for a
-depth format the port can read. The depth-supervised share of the port's
-trainer is rendered instead (`train/render.render_scene_views`).
+The MegaDepth depth loader of that module reads HDF5 depth maps, which
+the port cannot count on yet (its JPEG reads and resizes now run without
+cv2, `utils/imageio`); it waits for that. The depth-supervised share of
+the port's trainer is rendered instead (`train/render.render_scene_views`).
 """
 
 from __future__ import annotations
@@ -23,8 +23,8 @@ class ImageFolderSource:
     """Random-image pool for the synthetic augmentation: up to
     `max_num_imgs` images of a directory (`*.jpg`, `*.png`), turned
     landscape and resized to `resolution` (W, H), reshuffled every
-    `reload_step` draws. PNGs are read without cv2 (`utils.imageio`);
-    cv2 is imported only for another format or a resize."""
+    `reload_step` draws. PNGs and JPEGs are read and resized without cv2
+    (`utils.imageio`); cv2 is imported only for another format."""
 
     def __init__(self, img_dir: str, resolution: Tuple[int, int] = (800, 608),
                  max_num_imgs: int = 3000, reload_step: int = 4000,

@@ -55,7 +55,13 @@ Run from the root of a checkout. In order, it
      two image sizes interleaved, a PNG body, /match in its three modes,
      /healthz; every answer 200 and equal to the direct call, A-D counted;
      request walls, bursts against sequences in turns, a profiled burst;
-  8. times each kernel against its plain version, its bound and, where one
+  8. drives ScanNet-1500 (`scannet_phase`) with cv2 unimportable: the
+     committed 640x480 JPEG fixture read by `decode_jpeg`, `run_benchmark`
+     batched at top_k 4096 with posekit (A, B and C counted), each pair's
+     matches against the port's CPU path, the threshold sweep and the best
+     AUCs, the decode, extraction and matching walls, and A, B and C
+     against their plain versions and timed at 640x480, K = 4096;
+  9. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function (D's
      backward also at LighterGlue training's shape), and profiles one call
      of each matcher.
@@ -90,6 +96,7 @@ SHIFT = (24, 16)         # (dx, dy) of the rolled copy
 # the SLAM benchmark's trajectory (`apps/eval_slam.py`'s defaults)
 SLAM_H, SLAM_W, SLAM_K = 480, 640, 2048
 SLAM_FRAMES, SLAM_SEED = 32, 3
+SCANNET_K = 4096         # the ScanNet-1500 eval's top_k (640x480 frames)
 
 
 def texture(seed: int, h: int, w: int):
@@ -377,6 +384,80 @@ def pose_phase() -> None:
     profile_call("ransac_essential_batch", batch)
 
 
+def check_abc_at(xf, frames, k: int, tag: str, label: str):
+    """Kernels A, B and C against their plain versions on two uint8 frames
+    (2, H, W, 3) at top_k `k` (A equal under torch.equal, B within 1e-5,
+    C off float64 near-ties equal), then each timed at B = 1 beside its
+    plain version and its bound. Returns ({kernel: max abs err},
+    {kernel: (ms, plain ms, (bound ms, bound by))})."""
+    import torch
+
+    from accelerated_features_tpu_torch.models.backbone import xfeat_forward
+    from accelerated_features_tpu_torch.ops.cuda.bicubic import (
+        plain_descriptors, sample_descriptors)
+    from accelerated_features_tpu_torch.ops.cuda.detect_fused import \
+        topk_keypoints_fused
+    from accelerated_features_tpu_torch.ops.cuda.mnn import (
+        batch_mnn_match_fused, near_ties)
+    from accelerated_features_tpu_torch.ops.detect import (heatmap_decode,
+                                                           score_map,
+                                                           topk_keypoints)
+    from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
+    from accelerated_features_tpu_torch.ops.resize import to_unit_float
+    h, w = frames.shape[1:3]
+    x = to_unit_float(torch.from_numpy(frames).to("cuda"))
+    maps, logits, heat = xfeat_forward(xf.model.params, x)
+    kh, rl = heatmap_decode(logits).contiguous(), heat[..., 0].contiguous()
+    kp_k, s_k = topk_keypoints_fused(kh, rl, k, THR)
+    kp_p, s_p = topk_keypoints(score_map(kh, rl, THR), k)
+    check(torch.equal(kp_k, kp_p) and torch.equal(s_k, s_p),
+          f"kernel A differs from plain at {w}x{h}")
+    errs = {"detect_fused": (s_k - s_p).abs().max().item()}
+    pos = kp_k.float().contiguous()
+    d_k = sample_descriptors(maps, pos, (h, w))
+    d_p = plain_descriptors(maps, pos, (h, w))
+    errs["bicubic"] = (d_k - d_p).abs().max().item()
+    check(errs["bicubic"] <= 1e-5, f"kernel B max abs err {errs['bicubic']}"
+                                   f" at {w}x{h}")
+    da, db = d_k[:1].contiguous(), d_k[1:].contiguous()
+    va, vb = s_k[:1] > 0, s_k[1:] > 0
+    i_k, mk = batch_mnn_match_fused(da, db, va, vb, -1.0)
+    i_p, mp = batch_mnn_match(da, db, va, vb, -1.0)
+    tie, smax = near_ties(da, db, va, vb, -1.0, eps=1e-6)
+    diff = (i_k != i_p) | (mk != mp)
+    picked = (da.double() * torch.gather(
+        db.double(), 1, i_k[..., None].expand(-1, -1, 64))).sum(-1)
+    errs["mnn"] = (smax - picked)[smax > -1e8].max().item()
+    print(f"{tag} shape checks K={k}: kernel A equal to plain "
+          f"(valid {(s_k > 0).sum(1).tolist()}), kernel B max abs err "
+          f"{errs['bicubic']:.3g}, kernel C {int(diff.sum())} rows differ, "
+          f"{int((diff & ~tie).sum())} off near-ties, {int(mk.sum())} "
+          f"matches")
+    check(not bool((diff & ~tie).any()) and errs["mnn"] <= 1e-6,
+          f"kernel C differs from plain at K={k}")
+    times = {}
+    k1, r1, m1_, p1_ = kh[:1], rl[:1], maps[:1], pos[:1].contiguous()
+    times["detect_fused"] = (
+        time_ms(lambda: topk_keypoints_fused(k1, r1, k, THR)),
+        time_ms(lambda: topk_keypoints(score_map(k1, r1, THR), k),
+                iters=20),
+        bound(4 * (k1.numel() + r1.numel()) + 20 * k, 40 * k1.numel()))
+    times["bicubic"] = (
+        time_ms(lambda: sample_descriptors(m1_, p1_, (h, w))),
+        time_ms(lambda: plain_descriptors(m1_, p1_, (h, w)), iters=20),
+        bound(4 * (m1_.numel() + p1_.numel() + k * 64),
+              k * (16 * 64 * 5 + 64 * 3)))
+    times["mnn"] = (
+        time_ms(lambda: batch_mnn_match_fused(da, db, va, vb, -1.0)),
+        time_ms(lambda: batch_mnn_match(da, db, va, vb, -1.0), iters=20),
+        bound(4 * (da.numel() + db.numel()) + 11 * k,
+              3 * 2.0 * k * k * 64, PEAK_TF32))
+    for name, (ms, pms, (bms, by)) in times.items():
+        print(f"time {name} at {w}x{h}, K={k}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {bms:.5f} ms ({by}) on {label}")
+    return errs, times
+
+
 def slam_phase(root: Path, counters: dict) -> dict:
     """The SfM/SLAM path on the card, as `apps/eval_slam.py` runs it.
 
@@ -405,18 +486,6 @@ def slam_phase(root: Path, counters: dict) -> dict:
         device_label, gt_pose6, summarize)
     from accelerated_features_tpu_torch.eval.megadepth1500 import (
         compute_pose_error, load_pairs)
-    from accelerated_features_tpu_torch.models.backbone import xfeat_forward
-    from accelerated_features_tpu_torch.ops.cuda.bicubic import (
-        plain_descriptors, sample_descriptors)
-    from accelerated_features_tpu_torch.ops.cuda.detect_fused import \
-        topk_keypoints_fused
-    from accelerated_features_tpu_torch.ops.cuda.mnn import (
-        batch_mnn_match_fused, near_ties)
-    from accelerated_features_tpu_torch.ops.detect import (heatmap_decode,
-                                                           score_map,
-                                                           topk_keypoints)
-    from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
-    from accelerated_features_tpu_torch.ops.resize import to_unit_float
     from accelerated_features_tpu_torch.sfm import (IncrementalSlam,
                                                     SlamConfig,
                                                     bundle_adjust,
@@ -471,59 +540,8 @@ def slam_phase(root: Path, counters: dict) -> dict:
           f"{SLAM_SEED}, holdout textures) in {time.time() - t0:.1f} s")
 
     # ---- kernels A, B and C at this shape, against their plain versions --
-    x = to_unit_float(torch.from_numpy(traj["images"][:2]).to(dev))
-    maps, logits, heat = xfeat_forward(xf.model.params, x)
-    kh, rl = heatmap_decode(logits).contiguous(), heat[..., 0].contiguous()
-    kp_k, s_k = topk_keypoints_fused(kh, rl, SLAM_K, THR)
-    kp_p, s_p = topk_keypoints(score_map(kh, rl, THR), SLAM_K)
-    check(torch.equal(kp_k, kp_p) and torch.equal(s_k, s_p),
-          f"kernel A differs from plain at {SLAM_W}x{SLAM_H}")
-    errs = {"detect_fused": (s_k - s_p).abs().max().item()}
-    pos = kp_k.float().contiguous()
-    d_k = sample_descriptors(maps, pos, (SLAM_H, SLAM_W))
-    d_p = plain_descriptors(maps, pos, (SLAM_H, SLAM_W))
-    errs["bicubic"] = (d_k - d_p).abs().max().item()
-    check(errs["bicubic"] <= 1e-5, f"kernel B max abs err {errs['bicubic']}"
-                                   f" at {SLAM_W}x{SLAM_H}")
-    da, db = d_k[:1].contiguous(), d_k[1:].contiguous()
-    va, vb = s_k[:1] > 0, s_k[1:] > 0
-    i_k, mk = batch_mnn_match_fused(da, db, va, vb, -1.0)
-    i_p, mp = batch_mnn_match(da, db, va, vb, -1.0)
-    tie, smax = near_ties(da, db, va, vb, -1.0, eps=1e-6)
-    diff = (i_k != i_p) | (mk != mp)
-    picked = (da.double() * torch.gather(
-        db.double(), 1, i_k[..., None].expand(-1, -1, 64))).sum(-1)
-    errs["mnn"] = (smax - picked)[smax > -1e8].max().item()
-    print(f"slam shape checks K={SLAM_K}: kernel A equal to plain "
-          f"(valid {(s_k > 0).sum(1).tolist()}), kernel B max abs err "
-          f"{errs['bicubic']:.3g}, kernel C {int(diff.sum())} rows differ, "
-          f"{int((diff & ~tie).sum())} off near-ties, {int(mk.sum())} "
-          f"matches")
-    check(not bool((diff & ~tie).any()) and errs["mnn"] <= 1e-6,
-          f"kernel C differs from plain at K={SLAM_K}")
-    times = {}
-    k1, r1, m1_, p1_ = kh[:1], rl[:1], maps[:1], pos[:1].contiguous()
-    times["detect_fused"] = (
-        time_ms(lambda: topk_keypoints_fused(k1, r1, SLAM_K, THR)),
-        time_ms(lambda: topk_keypoints(score_map(k1, r1, THR), SLAM_K),
-                iters=20),
-        bound(4 * (k1.numel() + r1.numel()) + 20 * SLAM_K,
-              40 * k1.numel()))
-    times["bicubic"] = (
-        time_ms(lambda: sample_descriptors(m1_, p1_, (SLAM_H, SLAM_W))),
-        time_ms(lambda: plain_descriptors(m1_, p1_, (SLAM_H, SLAM_W)),
-                iters=20),
-        bound(4 * (m1_.numel() + p1_.numel() + SLAM_K * 64),
-              SLAM_K * (16 * 64 * 5 + 64 * 3)))
-    times["mnn"] = (
-        time_ms(lambda: batch_mnn_match_fused(da, db, va, vb, -1.0)),
-        time_ms(lambda: batch_mnn_match(da, db, va, vb, -1.0), iters=20),
-        bound(4 * (da.numel() + db.numel()) + 11 * SLAM_K,
-              3 * 2.0 * SLAM_K * SLAM_K * 64, PEAK_TF32))
-    for k, (ms, pms, (bms, by)) in times.items():
-        print(f"time {k} at {SLAM_W}x{SLAM_H}, K={SLAM_K}: kernel {ms:.4f} "
-              f"ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}) on "
-              f"{label}")
+    errs, times = check_abc_at(xf, traj["images"][:2], SLAM_K, "slam",
+                               label)
 
     # ---- the tracker, loop closure off and on, each counted on its own ---
     runs, launches = {}, {}
@@ -1249,6 +1267,163 @@ def serve_phase(root: Path, counters: dict) -> dict:
     return {"launches": launches}
 
 
+def scannet_phase(root: Path, counters: dict) -> dict:
+    """ScanNet-1500 on the card (`eval/scannet1500.py`), on the committed
+    ScanNet-layout fixture `tests/fixtures/scannet1500_mini` (two rendered
+    scenes, six pairs of 640x480 JPEG frames), with cv2 made unimportable
+    for the whole phase.
+
+    Every frame is read by `decode_jpeg` (its host wall a frame printed);
+    then `run_benchmark` in batched mode (`extract_matches_batched`) with
+    the trained extractor at top_k 4096 and posekit, counted on its own:
+    kernels A, B and C must each have run. Each pair's matches, kept by
+    the benchmark's match cache, must equal the port's CPU path as sets
+    (a share of shared pairs >= 0.98, the tolerance `slam_phase` holds
+    its holdout pair to), and the best AUCs must be finite and in [0, 1].
+    Prints the threshold sweep, the best AUC@5/10/20, the launches of one
+    pair alone, the extraction and matching walls, and A, B and C against
+    their plain versions and timed at 640x480, K = 4096, beside the
+    card's name and power limit. Returns what the kernel rows need."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch import XFeat
+    from accelerated_features_tpu_torch.apps.eval_slam import device_label
+    from accelerated_features_tpu_torch.eval import scannet1500 as sn
+    from accelerated_features_tpu_torch.eval.batched import (
+        extract_features_batched, match_pairs_batched)
+    from accelerated_features_tpu_torch.utils.imageio import decode_jpeg
+    label = device_label(torch.device("cuda"))
+    fixture = root / "tests" / "fixtures" / "scannet1500_mini"
+    npz = str(fixture / "test.npz")
+    weights = str(root / "artifacts" / "run_md_ckpt13250.npz")
+    pairs = sn.load_pair_list(npz)
+    frames = sorted({p[k] for p in pairs for k in ("im0", "im1")})
+    cv2_module = sys.modules.get("cv2")
+    sys.modules["cv2"] = None   # `import cv2` raises during the phase
+    try:
+        # ---- every frame by decode_jpeg, timed on the host --------------
+        images, first, walls = {}, [], []
+        for rel in frames:
+            data = (fixture / rel).read_bytes()
+            t0 = time.perf_counter()
+            images[rel] = decode_jpeg(data)
+            first.append((time.perf_counter() - t0) * 1e3)
+            check(images[rel].shape == (480, 640, 3)
+                  and images[rel].dtype == np.uint8,
+                  f"decode_jpeg gave {images[rel].shape} for {rel}")
+        for rel in frames:
+            data = (fixture / rel).read_bytes()
+            t0 = time.perf_counter()
+            check(np.array_equal(decode_jpeg(data), images[rel]),
+                  "decode_jpeg is not deterministic")
+            walls.append((time.perf_counter() - t0) * 1e3)
+        decode_ms = sorted(walls)[len(walls) // 2]
+        print(f"scannet: {len(frames)} JPEG frames 640x480 decoded by "
+              f"decode_jpeg with cv2 unimportable: first pass ms {first} "
+              f"(the first call builds or loads the entropy decoder), then "
+              f"ms a frame {walls} (median {decode_ms:.3f}) on the host of "
+              f"{label}")
+
+        # ---- the benchmark on the card, counted on its own ---------------
+        with tempfile.TemporaryDirectory() as tmp:
+            cache = os.path.join(tmp, "matches.npz")
+            summary = os.path.join(tmp, "sweep.json")
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            best = sn.run_benchmark(
+                None, str(fixture), npz, cache_path=cache, workers=0,
+                summary_path=summary, cache_meta="card",
+                batched={"top_k": SCANNET_K, "weights": weights,
+                         "batch_size": 16})
+            torch.cuda.synchronize()
+            bench_s = time.perf_counter() - t0
+            launches = {k: counters[k].launches
+                        for k in ("detect_fused", "bicubic", "mnn")}
+            with open(summary) as f:
+                sweep = json.load(f)["sweep"]
+            card = sn._read_match_cache(cache, "card", len(pairs))
+        print(f"scannet run_benchmark (batched, top_k {SCANNET_K}, posekit, "
+              f"{len(pairs)} pairs, {len(frames)} frames): {bench_s:.2f} s, "
+              f"launches {launches}")
+        check(all(n > 0 for n in launches.values()),
+              f"a kernel was not launched on the ScanNet path: {launches}")
+        for key, v in sweep.items():
+            print(f"  sweep {key} px: AUC@5 {v['auc@5']:.4f} AUC@10 "
+                  f"{v['auc@10']:.4f} AUC@20 {v['auc@20']:.4f}")
+        aucs = [best[f"auc@{t}"] for t in (5, 10, 20)]
+        print(f"scannet best (threshold {best['best_threshold']} px): "
+              f"AUC@5 {aucs[0]:.4f} AUC@10 {aucs[1]:.4f} AUC@20 "
+              f"{aucs[2]:.4f} on {label}")
+        check(best["n_pairs"] == len(pairs)
+              and all(np.isfinite(a) and 0 <= a <= 1 for a in aucs),
+              f"the ScanNet summary is not finite: {best}")
+
+        # ---- each pair's matches against the port's CPU path -------------
+        cpu = sn.extract_matches_batched(str(fixture), pairs, top_k=SCANNET_K,
+                                         weights=weights, progress=False,
+                                         device="cpu")
+        shares, counts = [], []
+        for (g0, g1), (c0, c1) in zip(card, cpu):
+            got = {tuple(r) for r in np.concatenate([g0, g1], 1).tolist()}
+            ref = {tuple(r) for r in np.concatenate([c0, c1], 1).tolist()}
+            shares.append(len(got & ref) / max(len(got), len(ref), 1))
+            counts.append((len(g0), len(c0)))
+        t0 = time.perf_counter()
+        cpu_best = sn.best_result(sn.run_threshold_sweep(
+            cpu, sn.load_ground_truth(str(fixture), pairs)))
+        sweep_s = time.perf_counter() - t0
+        print(f"scannet matches (card, CPU) a pair {counts}; share of pairs "
+              f"shared {[round(x, 4) for x in shares]}; the CPU path's best "
+              f"AUC@5/10/20 {cpu_best['auc@5']:.4f}/"
+              f"{cpu_best['auc@10']:.4f}/{cpu_best['auc@20']:.4f}, its "
+              f"posekit sweep ({len(sn.THRESHOLDS)} thresholds x "
+              f"{len(pairs)} pairs, one process) {sweep_s:.2f} s on the "
+              f"host of {label}")
+        check(min(shares) >= 0.98 and min(c for c, _ in counts) > 100,
+              f"the ScanNet matches disagree with the CPU path: {shares}")
+
+        # ---- stage walls on the card, and one pair's launches ------------
+        xf = XFeat(weights, SCANNET_K, THR, device="cuda")
+        records = [(rel, rel, None) for rel in frames]
+        feats = extract_features_batched(xf.model.params, records,
+                                         str(fixture), SCANNET_K, THR,
+                                         batch_size=16, progress=False)
+        id_pairs = [(p["im0"], p["im1"]) for p in pairs]
+        ext_walls, ext_med = median_wall_ms(lambda: extract_features_batched(
+            xf.model.params, records, str(fixture), SCANNET_K, THR,
+            batch_size=16, progress=False))
+        mat_walls, mat_med = median_wall_ms(lambda: match_pairs_batched(
+            feats, id_pairs, 16, device="cuda"))
+        print(f"scannet walls on {label}: extraction of {len(frames)} frames "
+              f"(decode, then one batch of {len(frames)}) ms {ext_walls} "
+              f"(median {ext_med:.3f}); matching of {len(pairs)} pairs (one "
+              f"batch) ms {mat_walls} (median {mat_med:.3f})")
+        for fn in counters.values():
+            fn.launches = 0
+        sn.extract_matches_batched(str(fixture), pairs[:1], top_k=SCANNET_K,
+                                   weights=weights, progress=False)
+        per_pair = {k: counters[k].launches
+                    for k in ("detect_fused", "bicubic", "mnn")}
+        print(f"scannet launches of one pair alone (its two frames as one "
+              f"batch, one match): {per_pair}")
+
+        # ---- A, B and C at ScanNet's shape -------------------------------
+        two = np.stack([images[pairs[0]["im0"]], images[pairs[0]["im1"]]])
+        errs, times = check_abc_at(xf, two, SCANNET_K, "scannet", label)
+    finally:
+        if cv2_module is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = cv2_module
+    return {"launches": launches, "per_pair": per_pair, "errs": errs,
+            "times": times}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1963,6 +2138,9 @@ def main() -> int:
     # ---- the serving path ---------------------------------------------------
     served = serve_phase(root, counters)
 
+    # ---- ScanNet-1500 -------------------------------------------------------
+    scannet = scannet_phase(root, counters)
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
@@ -2253,6 +2431,16 @@ def main() -> int:
                 "max_abs_err_640x480": slam["errs"][name],
                 "ms_640x480": ms, "plain_ms_640x480": pms,
                 "bound_ms_640x480": bms, "bound_by_640x480": by})
+    for row in rows:  # the ScanNet-1500 run: its launches, one pair's, and
+        name = row["name"]  # the check and times at 640x480, K=4096
+        if name in scannet["times"]:
+            ms, pms, (bms, by) = scannet["times"][name]
+            row.update({
+                "launches_scannet": scannet["launches"][name],
+                "launches_scannet_one_pair": scannet["per_pair"][name],
+                "max_abs_err_scannet": scannet["errs"][name],
+                "ms_scannet": ms, "plain_ms_scannet": pms,
+                "bound_ms_scannet": bms, "bound_by_scannet": by})
     for row in rows:  # launches of the serve phase's requests
         if row["name"] in served["launches"]:
             row["launches_serve"] = served["launches"][row["name"]]

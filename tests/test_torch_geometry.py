@@ -404,6 +404,23 @@ def test_run_benchmark_on_holdout_matches_jax(monkeypatch):
             <= 0.02 * n
 
 
+def test_run_benchmark_batched_posekit_pool_equals_one_process():
+    """`workers=2` runs posekit in a spawn pool of two processes and gives
+    the summary of `workers=0`, value for value; the device backend
+    refuses a pool."""
+    json_path = str(HOLDOUT / "rendered_pose_pairs.json")
+    kw = dict(top_k=512, weights=CKPT, batch_size=4, limit=4,
+              progress=False, device="cpu")
+    one = md.run_benchmark_batched(str(HOLDOUT), json_path, workers=0, **kw)
+    pool = md.run_benchmark_batched(str(HOLDOUT), json_path, workers=2, **kw)
+    assert one.keys() == pool.keys() and one["n_pairs"] == 4
+    keys = sorted(one)
+    assert np.array_equal([one[k] for k in keys], [pool[k] for k in keys])
+    with pytest.raises(ValueError, match="workers <= 1"):
+        md.run_benchmark_batched(str(HOLDOUT), json_path, workers=2,
+                                 pose_backend="gpu", **kw)
+
+
 def test_run_benchmark_batched_equals_per_pair():
     """Two holdout pairs, top_k 1024, on the CPU: size-bucketed batched
     extraction and the batched masked MNN give the per-pair path's matches

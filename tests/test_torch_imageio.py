@@ -147,16 +147,17 @@ def test_load_textures_searches_the_holdout_recursively():
 
 def test_png_eval_runs_without_cv2(monkeypatch, tmp_path):
     """With cv2 unimportable, `imread` and `resize` serve PNGs at their own
-    size and the holdout pose eval runs one pair; another format needs
-    cv2."""
+    size and the holdout pose eval runs one pair; a format that is neither
+    PNG nor JPEG needs cv2."""
     from accelerated_features_tpu_torch.eval import megadepth1500 as md
     path = HOLDOUT_PNGS[0]
     ref = cv2.imread(str(path))
+    cv2.imwrite(str(tmp_path / "x.bmp"), ref[:8, :8])
     monkeypatch.setitem(__import__("sys").modules, "cv2", None)
     im = imread(path)
     assert np.array_equal(im, ref) and resize(im, (608, 800)) is im
     with pytest.raises(ImportError):
-        imread(tmp_path / "x.jpg")
+        imread(tmp_path / "x.bmp")
     summary = md.run_benchmark(
         md.make_matcher("xfeat", 256, device="cpu"), str(HOLDOUT.parent),
         str(HOLDOUT.parent / "rendered_pose_pairs.json"), limit=1,

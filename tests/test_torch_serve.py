@@ -257,8 +257,9 @@ def _png(img):
 
 def test_png_body_is_decoded_without_cv2(server, monkeypatch):
     """A PNG body is read by `decode_png`, with cv2 not importable; its
-    answer equals the direct call on the decoded BGR image. Another image
-    format without cv2 is a 400 that names the accepted formats."""
+    answer equals the direct call on the decoded BGR image. A format that
+    is neither PNG nor JPEG without cv2 is a 400 that names the accepted
+    formats."""
     monkeypatch.setitem(sys.modules, "cv2", None)  # `import cv2` raises
     port = server.server_address[1]
     rgb = _image(7)
@@ -267,9 +268,34 @@ def test_png_body_is_decoded_without_cv2(server, monkeypatch):
     bgr = np.ascontiguousarray(rgb[..., ::-1])
     _assert_equal(out, server.service.xfeat.detectAndCompute(
         bgr, detection_threshold=THR)[0])
-    with pytest.raises(ValueError, match="npy, .npz or PNG"):
-        serve_mod._decode_image(b"\xff\xd8\xff\xe0 a JPEG header")
+    with pytest.raises(ValueError, match="npy, .npz, PNG or JPEG"):
+        serve_mod._decode_image(b"GIF89a a GIF header")
+    assert _status(port, "/detect", b"GIF89a a GIF header") == 400
     assert _status(port, "/detect", b"\xff\xd8\xff\xe0 a JPEG header") == 400
+
+
+def test_jpeg_body_is_decoded_without_cv2(server, monkeypatch):
+    """A JPEG body (a 640x480 ScanNet-layout frame) is read by
+    `decode_jpeg`, with cv2 not importable; /detect answers what the same
+    decoded image sent as PNG gets, and what the direct call gives."""
+    from pathlib import Path
+
+    from accelerated_features_tpu_torch.utils.imageio import decode_jpeg
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    port = server.server_address[1]
+    fixture = Path(__file__).resolve().parent / "fixtures" / \
+        "scannet1500_mini" / "scene0000_00" / "color"
+    jpg = (fixture / "0.jpg").read_bytes()
+    bgr = decode_jpeg(jpg)
+    png = _png(np.ascontiguousarray(bgr[..., ::-1]))
+    path = "/detect?threshold=0.012&top_k=256"
+    got = np.load(io.BytesIO(_post(port, path, jpg)))
+    ref = np.load(io.BytesIO(_post(port, path, png)))
+    assert got.files == ref.files and len(got["keypoints"]) > 0
+    for k in ref.files:
+        assert np.array_equal(got[k], ref[k])
+    _assert_equal(got, server.service.xfeat.detectAndCompute(
+        bgr, top_k=256, detection_threshold=THR)[0])
 
 
 def test_inference_error_is_500(server, monkeypatch):

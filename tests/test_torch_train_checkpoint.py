@@ -152,6 +152,68 @@ def test_port_reads_jax_checkpoints(tmp_path):
             ["to_qk"]["w"], f["opt_state/0/nu/layers/2/cross/to_qk/w"])
 
 
+def test_port_reads_jax_orbax_checkpoints(tmp_path, monkeypatch):
+    """The JAX package's own `save_checkpoint` writes an orbax directory
+    `ckpt_<step>/`; the port lists it, restores it (step and every leaf
+    equal) through `restore_checkpoint` and `resume_or_init`, and loads
+    its parameters through `XFeat(weights=dir)` and
+    `LighterGlue(weights=dir)`. Without tensorstore it raises, naming
+    the directory, and never starts afresh."""
+    from accelerated_features_tpu.train import lighterglue_run as jlr
+    import optax
+    from accelerated_features_tpu_torch import LighterGlue
+
+    jstate = jt.init_train_state(jax_init(jax.random.key(5)),
+                                 jt.TrainConfig(**CFG))
+    jstate = dict(jstate, step=jax.numpy.asarray(9, jax.numpy.int32))
+    ck = tmp_path / "ck"
+    path = jck.save_checkpoint(str(ck), jstate, 9)
+    assert Path(path).is_dir() and Path(path).name == "ckpt_00000009"
+    assert tck.latest_checkpoint(str(ck)) == path
+    jstate = jax.device_get(jstate)
+
+    target = tt.init_train_state(params_from_jax(init_xfeat_params()),
+                                 tt.TrainConfig(**CFG))
+    state = tck.restore_checkpoint(path, target)
+    resumed, ok = tck.resume_or_init(str(ck), target)
+    assert ok and int(state["step"]) == int(resumed["step"]) == 9
+    for got in (state, resumed):
+        _equal_trees(params_to_jax(got["params"]), jstate["params"])
+        for i in (1, 2):
+            assert int(got["opt_state"][i].count) == \
+                int(jstate["opt_state"][i].count)
+        _equal_trees(params_to_jax(got["opt_state"][1].mu),
+                     jstate["opt_state"][1].mu)
+        _equal_trees(params_to_jax(got["opt_state"][1].nu),
+                     jstate["opt_state"][1].nu)
+    _equal_trees(params_to_jax(tck.load_params_from_checkpoint(path)),
+                 jstate["params"])
+    xf = XFeat(weights=str(ck), top_k=16, device="cpu")
+    ref = XFeat(weights=jstate["params"], top_k=16, device="cpu")
+    for a, b in zip(_leaves(xf.model.params).values(),
+                    _leaves(ref.model.params).values()):
+        np.testing.assert_array_equal(a, b)
+
+    lg_params = jlg.init_lighterglue_params(jax.random.key(6),
+                                            jlg.DEFAULT_CONF)
+    lg_state = jlr.init_lg_train_state(lg_params, optax.adam(1e-4))
+    lg_dir = tmp_path / "lg"
+    jck.save_checkpoint(str(lg_dir), lg_state, 3)
+    lg = LighterGlue(weights=str(lg_dir), device="cpu")
+    _equal_trees(params_to_jax(lg.params), jax.device_get(lg_params))
+    port_lg = tck.restore_checkpoint(
+        tck.latest_checkpoint(str(lg_dir)),
+        init_lg_train_state(init_lighterglue_params(
+            torch.Generator().manual_seed(0), DEFAULT_CONF),
+            optim.adam(1e-4)))
+    assert int(port_lg["step"]) == 0
+    _equal_trees(params_to_jax(port_lg["params"]), jax.device_get(lg_params))
+
+    monkeypatch.setitem(__import__("sys").modules, "tensorstore", None)
+    with pytest.raises(RuntimeError, match="ckpt_00000009.*tensorstore"):
+        tck.resume_or_init(str(ck), target)
+
+
 def test_checkpoint_key_mismatch_raises(tmp_path):
     state = tt.init_train_state(params_from_jax(init_xfeat_params()),
                                 tt.TrainConfig(**CFG))
