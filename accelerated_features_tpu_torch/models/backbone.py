@@ -16,7 +16,7 @@ variance for the trainer's running-average update (JAX
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,13 +51,29 @@ def _conv(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 def _batch_norm(x: torch.Tensor, dims: Tuple[int, ...],
                 stats_out: Optional[list],
-                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                valid: Optional[torch.Tensor] = None,
+                reduce: Optional[Callable] = None) -> torch.Tensor:
     """Affine-free BatchNorm with batch statistics over `dims`: mean and
     biased variance in float32, over the rows where `valid` holds when it
     is given, applied in x's dtype (the JAX package's arithmetic); appends
-    {mean, unbiased var} to `stats_out`."""
+    {mean, unbiased var} to `stats_out`.
+
+    `reduce` (data parallelism, `parallel.mesh.AxisSum`) sums a tensor
+    over the ranks that hold the rest of the batch, with its gradient;
+    the statistics are then the global batch's, in two passes (the sum,
+    then the squared deviations from the global mean) as one device
+    computes them."""
     xf = x.float()
-    if valid is None:
+    if reduce is not None:
+        if valid is not None:
+            raise ValueError("a reduced BatchNorm takes no row mask")
+        n = float(xf.numel() // xf.shape[1 if xf.dim() == 4 else -1]) \
+            * reduce.size
+        shape = [1, -1, 1, 1] if x.dim() == 4 else [-1]
+        mean = reduce(xf.sum(dim=dims)) / n
+        var = reduce(((xf - mean.reshape(shape)) ** 2).sum(dim=dims)) / n
+        unbiased = var * n / max(n - 1.0, 1.0)
+    elif valid is None:
         mean = xf.mean(dim=dims)
         var = xf.var(dim=dims, unbiased=False)
         n = float(xf.numel() // xf.shape[1 if xf.dim() == 4 else -1])
@@ -77,16 +93,18 @@ def _batch_norm(x: torch.Tensor, dims: Tuple[int, ...],
 
 
 def _basic(p: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
-           stats_out: Optional[list] = None) -> torch.Tensor:
+           stats_out: Optional[list] = None,
+           reduce: Optional[Callable] = None) -> torch.Tensor:
     """Conv + BatchNorm + ReLU: the BatchNorm folded into the conv's bias
     (inference), or with batch statistics when `stats_out` is a list
-    (training)."""
+    (training; `reduce` as in `_batch_norm`)."""
     if "b" in p:
         return F.relu(_conv(x, p, stride))
     if stats_out is None:
         raise ValueError("inference needs BatchNorm folded into the conv "
                          "biases (models.params.fold_batchnorm)")
-    return F.relu(_batch_norm(_conv(x, p, stride), (0, 2, 3), stats_out))
+    return F.relu(_batch_norm(_conv(x, p, stride), (0, 2, 3), stats_out,
+                              reduce=reduce))
 
 
 def space_to_depth(x: torch.Tensor, ws: int = 8) -> torch.Tensor:
@@ -120,7 +138,8 @@ def _upsample(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 
 
 def stem_unfused(params: Dict[str, Any], x: torch.Tensor,
-                 stats: Optional[Dict[str, list]] = None) -> torch.Tensor:
+                 stats: Optional[Dict[str, list]] = None,
+                 bn_reduce: Optional[Callable] = None) -> torch.Tensor:
     """block1 and the avg-pool skip as the backbone's own convs, in the
     dtype of the normalized gray image x (B,1,H,W) -> (B,24,H/4,W/4).
     With `stats`, block1 normalizes with batch statistics and records
@@ -128,13 +147,14 @@ def stem_unfused(params: Dict[str, Any], x: torch.Tensor,
     x1 = x
     sub = None if stats is None else stats.setdefault("block1", [])
     for p, s in zip(params["block1"], BLOCK_STRIDES["block1"]):
-        x1 = _basic(p, x1, s, sub)
+        x1 = _basic(p, x1, s, sub, bn_reduce)
     return x1 + _conv(F.avg_pool2d(x, 4, 4), params["skip1"])
 
 
 def xfeat_forward(params: Dict[str, Any], x: torch.Tensor, *,
                   compute_dtype: torch.dtype = torch.float32,
-                  fused_stem: bool = False, train: bool = False):
+                  fused_stem: bool = False, train: bool = False,
+                  bn_reduce: Optional[Callable] = None):
     """(B,H,W,C) float images in [0,1], H and W divisible by 32 ->
     feats (B,H/8,W/8,64), logits (B,H/8,W/8,65), heat (B,H/8,W/8,1), all
     in `compute_dtype`; with `train=True` also the BatchNorm batch
@@ -148,7 +168,11 @@ def xfeat_forward(params: Dict[str, Any], x: torch.Tensor, *,
     `fused_stem`: run block1 and the skip as the fused stem kernel
     (`ops/cuda/stem_fused.py`) on CUDA tensors, and as its plain version on
     CPU tensors; inference only. An explicit keyword only; no environment
-    variable sets it."""
+    variable sets it.
+    `bn_reduce`: with `train=True` under data parallelism, the sum over
+    the ranks that hold the rest of the batch (`parallel.mesh.AxisSum`),
+    so that every BatchNorm normalizes with the global batch's
+    statistics."""
     if compute_dtype not in (torch.float32, torch.bfloat16, torch.float64):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{compute_dtype}")
@@ -161,7 +185,7 @@ def xfeat_forward(params: Dict[str, Any], x: torch.Tensor, *,
     def block(name, y, strides):
         sub = None if stats is None else stats.setdefault(name, [])
         for p, s in zip(params[name], strides):
-            y = _basic(p, y, s, sub)
+            y = _basic(p, y, s, sub, bn_reduce)
         return y
 
     with full_fp32_convs():
@@ -170,7 +194,7 @@ def xfeat_forward(params: Dict[str, Any], x: torch.Tensor, *,
 
         # stem_fused raises on unfolded BatchNorm
         y = stem_fused(params, x) if fused_stem else \
-            stem_unfused(params, x, stats)
+            stem_unfused(params, x, stats, bn_reduce)
         outs = {}
         for name in ("block2", "block3", "block4", "block5"):
             y = outs[name] = block(name, y, BLOCK_STRIDES[name])

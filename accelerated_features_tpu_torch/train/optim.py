@@ -10,7 +10,8 @@ parameters' device; mu and nu are trees shaped like the parameters.
 Trees are nested dicts, lists and tuples of tensors.
 
 - `clip_by_global_norm`: t -> t / norm * max_norm only when norm >=
-  max_norm (no epsilon is added, unlike `torch.nn.utils.clip_grad_norm_`).
+  max_norm (no epsilon is added, unlike `torch.nn.utils.clip_grad_norm_`);
+  the norm of a tree sharded over ranks comes from a given `norm_fn`.
 - `scale_by_adam`: eps outside the square root, bias correction by
   1 - b**count in float32 with the count after the update.
 - `scale_by_learning_rate`: multiplies by -lr(count), the count before the
@@ -110,9 +111,15 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum((x * x).sum() for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float,
+                        norm_fn: Callable[[Any], torch.Tensor] = None
+                        ) -> GradientTransformation:
+    """`norm_fn` (default `global_norm`) gives the norm of the whole
+    update tree; a sharded tree passes one that sums over its shards."""
+    norm_fn = norm_fn or global_norm
+
     def update(updates, state, params=None):
-        norm = global_norm(updates)
+        norm = norm_fn(updates)
         clip = norm >= max_norm
         return tree_map(lambda t: torch.where(clip, t / norm * max_norm, t),
                         updates), state

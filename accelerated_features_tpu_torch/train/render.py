@@ -8,9 +8,11 @@ the ray parameter is the z-depth. `render_trajectory` renders a smooth
 orbit through one scene with exact intrinsics and world-to-camera poses:
 the ground truth of `apps/eval_slam.py`; `render_scene_views` renders
 several cameras of one scene with their depth, the trainer's
-depth-supervised pairs. Same draws from the same
-`numpy.random.Generator`, same arithmetic, so the same images as the JAX
-package's renderer.
+depth-supervised pairs; `pair_overlap` is the overlap a MegaDepth pair
+index filters on (`tools/make_megadepth_fixture.py` writes it), and
+`make_camera_pair` a two-camera rig. Same draws from the same
+`numpy.random.Generator`, same arithmetic, so the same images as the
+JAX package's renderer.
 """
 
 from __future__ import annotations
@@ -102,6 +104,24 @@ def look_at_w2c(cam_pos: np.ndarray, target: np.ndarray,
     return T
 
 
+def make_camera_pair(rng: np.random.Generator,
+                     scene_center: np.ndarray,
+                     baseline_frac: Tuple[float, float] = (0.08, 0.35)
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Camera 0 at the origin looking at the scene center; camera 1
+    displaced by a baseline of `baseline_frac` x distance-to-center in a
+    random direction, re-aimed at a slightly jittered target. Returns two
+    world-to-camera 4x4 poses."""
+    dist = np.linalg.norm(scene_center)
+    T0 = look_at_w2c(np.zeros(3), scene_center)
+    b = rng.uniform(*baseline_frac) * dist
+    direction = _unit(np.concatenate([rng.normal(size=2), [0.3 * rng.normal()]]))
+    cam1 = direction * b
+    target = scene_center + rng.normal(scale=0.05 * dist, size=3)
+    T1 = look_at_w2c(cam1, target)
+    return T0, T1
+
+
 def render_view(quads: List[Dict[str, np.ndarray]], K: np.ndarray,
                 T_w2c: np.ndarray, h: int, w: int
                 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -160,6 +180,34 @@ def render_view(quads: List[Dict[str, np.ndarray]], K: np.ndarray,
 
     depth = np.where(np.isfinite(zbuf), zbuf, 0.0).astype(np.float32)
     return np.clip(img, 0, 255).astype(np.uint8), depth
+
+
+def pair_overlap(depth0: np.ndarray, depth1: np.ndarray,
+                 K0: np.ndarray, K1: np.ndarray,
+                 T_0to1: np.ndarray, stride: int = 8,
+                 rel_tol: float = 0.03) -> float:
+    """Fraction of valid-depth pixels of view 0 that land inside view 1
+    with consistent depth — the 'overlap' the MegaDepth pair index filters
+    on (reference megadepth.py:58-61). Pure numpy."""
+    h, w = depth0.shape
+    ys, xs = np.mgrid[stride // 2:h:stride, stride // 2:w:stride]
+    d = depth0[ys, xs]
+    ok = d > 0
+    if not ok.any():
+        return 0.0
+    pts = np.stack([xs + 0.5, ys + 0.5, np.ones_like(xs, np.float32)], -1)
+    cam0 = (pts @ np.linalg.inv(K0).T) * d[..., None]
+    cam1 = cam0 @ T_0to1[:3, :3].T + T_0to1[:3, 3]
+    z1 = cam1[..., 2]
+    proj = cam1 @ K1.T
+    uu = proj[..., 0] / np.maximum(proj[..., 2], 1e-9)
+    vv = proj[..., 1] / np.maximum(proj[..., 2], 1e-9)
+    inb = ok & (z1 > 0) & (uu >= 0) & (uu < w) & (vv >= 0) & (vv < h)
+    ui = np.clip(uu.astype(np.int32), 0, w - 1)
+    vi = np.clip(vv.astype(np.int32), 0, h - 1)
+    dz = depth1[vi, ui]
+    consistent = inb & (dz > 0) & (np.abs(dz - z1) <= rel_tol * np.maximum(z1, 1e-6) + 0.02)
+    return float(consistent.sum() / max(ok.sum(), 1))
 
 
 def render_scene_views(rng: np.random.Generator,

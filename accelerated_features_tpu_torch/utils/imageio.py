@@ -20,8 +20,9 @@
   Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files
   raise `ValueError` naming the kind; nothing falls back to cv2.
 * `imread` dispatches on the file's signature (PNG, JPEG, else cv2,
-  imported only then); `imread_gray` reads a JPEG's gray plane, other
-  formats by cv2; `resize` is cv2's `INTER_LINEAR` `cv2.resize`,
+  imported only then); `imread_gray` reads a PNG in gray as cv2 does
+  (libpng's rgb-to-gray for color), a JPEG's gray plane, other formats
+  by cv2; `resize` is cv2's `INTER_LINEAR` `cv2.resize`,
   fixed-point for uint8, in numpy.
 * `load_textures`: the texture-crop loader of the rendered datasets
   (counterpart of `apps/render_depth_dataset.load_textures`).
@@ -65,11 +66,14 @@ def _unfilter_bytewise(kind: int, line: np.ndarray, prior: np.ndarray,
     return np.frombuffer(bytes(out), np.uint8)
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
     """Decode the bytes of an 8-bit, non-interlaced gray, RGB or RGBA PNG
     into an (H, W, 3) uint8 BGR array, as `cv2.imdecode(buf,
-    cv2.IMREAD_COLOR)` does; any other PNG, or bytes that are not one,
-    raise ValueError."""
+    cv2.IMREAD_COLOR)` does, or with `gray` into (H, W) as
+    `cv2.IMREAD_GRAYSCALE` does: a gray file as it is, a color one through
+    libpng's `png_set_rgb_to_gray` with cv2's weights, (9797 R + 19234 G +
+    3737 B) >> 15, alpha dropped. Any other PNG, or bytes that are not
+    one, raise ValueError."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -116,15 +120,20 @@ def decode_png(data: bytes) -> np.ndarray:
         prior = img[y]
     img = img.reshape(h, w, bpp)
     if bpp == 1:
-        return np.repeat(img, 3, axis=2)
+        return img[..., 0] if gray else np.repeat(img, 3, axis=2)
+    if gray:
+        rgb = img[..., :3].astype(np.uint32)
+        return ((9797 * rgb[..., 0] + 19234 * rgb[..., 1]
+                 + 3737 * rgb[..., 2]) >> 15).astype(np.uint8)
     return np.ascontiguousarray(img[..., 2::-1])
 
 
-def read_png(path: Union[str, Path]) -> np.ndarray:
+def read_png(path: Union[str, Path], gray: bool = False) -> np.ndarray:
     """Decode an 8-bit, non-interlaced gray, RGB or RGBA PNG file into an
-    (H, W, 3) uint8 BGR array, as `cv2.imread(path)` does."""
+    (H, W, 3) uint8 BGR array, as `cv2.imread(path)` does, or with `gray`
+    into (H, W) as `cv2.imread(path, cv2.IMREAD_GRAYSCALE)` does."""
     try:
-        return decode_png(Path(path).read_bytes())
+        return decode_png(Path(path).read_bytes(), gray)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
 
@@ -524,19 +533,29 @@ def imread(path: Union[str, Path]) -> np.ndarray:
     return im
 
 
-def imread_gray(path: Union[str, Path]) -> Optional[np.ndarray]:
+def imread_gray(path: Union[str, Path, bytes]) -> Optional[np.ndarray]:
     """(H, W) uint8, as `cv2.imread(path, cv2.IMREAD_GRAYSCALE)` (the JAX
-    package's `train/megadepth.imread_gray`): a JPEG by `read_jpeg`, any
-    other format by cv2, imported only then (cv2's gray read of a color
-    PNG is its own conversion, which `read_png` does not reproduce). A
-    missing file gives None, as cv2 does."""
-    p = Path(path)
-    if not p.is_file():
-        return None
-    if p.read_bytes()[:2] == JPEG_SOI:
-        return read_jpeg(p, gray=True)
+    package's `train/megadepth.imread_gray`), of a file or of its bytes
+    (`cv2.imdecode`): by the signature a PNG by `read_png` (gray as it
+    is, color by libpng's rgb-to-gray), a JPEG by `read_jpeg`, any other
+    format by cv2, imported only then. A PNG or JPEG this module refuses
+    raises, naming it. A missing file gives None, as cv2 does."""
+    if isinstance(path, (bytes, bytearray)):
+        data, name = bytes(path), "<bytes>"
+    else:
+        p = Path(path)
+        if not p.is_file():
+            return None
+        data, name = p.read_bytes(), str(p)
+    try:
+        if data[:8] == PNG_SIGNATURE:
+            return decode_png(data, gray=True)
+        if data[:2] == JPEG_SOI:
+            return decode_jpeg(data, gray=True)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     import cv2
-    return cv2.imread(str(p), cv2.IMREAD_GRAYSCALE)
+    return cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE)
 
 
 _COEF_BITS = 11   # cv2's INTER_RESIZE_COEF_BITS

@@ -61,7 +61,23 @@ Run from the root of a checkout. In order, it
      matches against the port's CPU path, the threshold sweep and the best
      AUCs, the decode, extraction and matching walls, and A, B and C
      against their plain versions and timed at 640x480, K = 4096;
-  9. times each kernel against its plain version, its bound and, where one
+  9. drives MegaDepth depth training (`megadepth_phase`) with cv2 and h5py
+     unimportable: the committed MegaDepth-layout fixture read by
+     `utils/hdf5` (against its `.npy` twins, and the 608x800 map timed)
+     and `imread_gray`;
+     `train.run.main` at batch 6, 800x608, resident and streamed through
+     the prefetch thread (3 steps each), and the 40/60 recipe at batch 10
+     (2 steps); the resident batch against the streamed one; step 1's
+     gradients against the CPU path; streamed step walls without and with
+     the prefetch thread, in turns;
+ 10. drives the multi-GPU layer (`multigpu_phase`): the sharded train
+     step, `sharded_detect_and_compute` (A, B counted), `mnn_match_sp`,
+     `lighterglue_forward_sp` (D counted) and both sharded bundle
+     adjustments, each against its single-device path on the card, at
+     NCCL world size 1 in this process and on two gloo ranks sharing the
+     card (spawned), then `parallel/dryrun.dryrun_multigpu(2)` at its
+     default device, the card;
+ 11. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function (D's
      backward also at LighterGlue training's shape), and profiles one call
      of each matcher.
@@ -73,6 +89,7 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -1424,6 +1441,646 @@ def scannet_phase(root: Path, counters: dict) -> dict:
             "times": times}
 
 
+def megadepth_phase(root: Path, counters: dict) -> dict:
+    """MegaDepth depth training on the card from the committed fixture
+    `tests/fixtures/megadepth_mini` (MegaDepth's layout: two rendered
+    scenes of three 320x240 views, one as JPEG with gzip-chunked HDF5
+    depth, one as color PNG with contiguous HDF5 depth), with cv2 and h5py
+    made unimportable for the whole phase.
+
+    (a) Every depth map read by `utils/hdf5` equals its committed `.npy`
+    twin (host ms a file printed), the committed 608x800 gzip-chunked map
+    (`tests/fixtures/megadepth_depth_608x800`) too, read 5 times and
+    timed each, and every image of `load_all_views` equals the port's
+    own decode and resize of its file. (b)
+    `train.run.main` at the reference recipe's width from random init:
+    `--training_type xfeat_megadepth`, batch 6 at 800x608, 3 steps with
+    `--md_resident` and 3 streamed through the prefetch thread, then
+    `xfeat_default` at batch 10 (4 synthetic from the holdout PNGs + 6
+    MegaDepth) for 2 steps; every loss finite. (c) The resident batch of
+    all six pairs equals the streamed one: K and scales equal, images
+    within 1 ulp, poses within 1e-5 (float32 products in two orders),
+    depths within bfloat16 rounding, and the ground truth from the
+    same draws shares >= 0.99 of its correspondences with the streamed
+    batch's once its depths take the same rounding (the two differ at the
+    depth map's border). (d) Step 1's
+    loss and gradients on that batch against the port's CPU path
+    (`grads_agree`, `train_phase`'s gates). (e) Step walls of the streamed
+    batcher without and with the prefetch thread, in turns, and a profiled
+    step. The training path runs no kernel of the port (XFeat training is
+    cuDNN and torch); none is counted here. Returns what the summary
+    needs."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch.apps.eval_slam import device_label
+    from accelerated_features_tpu_torch.models.params import (
+        init_xfeat_params, params_from_jax)
+    from accelerated_features_tpu_torch.train import megadepth as md
+    from accelerated_features_tpu_torch.train import optim
+    from accelerated_features_tpu_torch.train import run as xrun
+    from accelerated_features_tpu_torch.train import trainer as tt
+    from accelerated_features_tpu_torch.utils.hdf5 import read_dataset
+    from accelerated_features_tpu_torch.utils.imageio import (imread_gray,
+                                                              resize)
+    dev = torch.device("cuda")
+    label = device_label(dev)
+    fixture = root / "tests" / "fixtures" / "megadepth_mini"
+    holdout = root / "artifacts" / "rendered_pose_holdout"
+    saved = {m: sys.modules.get(m) for m in ("cv2", "h5py")}
+    for m in saved:
+        sys.modules[m] = None   # `import cv2` / `import h5py` raise
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_md_"))
+    out: dict = {}
+    try:
+        # ---- (a) the fixture, read without cv2 and h5py -------------------
+        depth_ms = []
+        for h5 in sorted(fixture.rglob("*.h5")):
+            data = h5.read_bytes()
+            t0 = time.perf_counter()
+            d = read_dataset(data)
+            depth_ms.append((time.perf_counter() - t0) * 1e3)
+            check(d.dtype == np.float32 and np.array_equal(
+                d, np.load(h5.with_suffix(".npy"))),
+                f"{h5.name}: the HDF5 reader differs from the .npy twin")
+        full = fixture.parent / "megadepth_depth_608x800" / "depth.h5"
+        data, ref = full.read_bytes(), np.load(full.with_suffix(".npy"))
+        full_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            d = read_dataset(data)
+            full_ms.append((time.perf_counter() - t0) * 1e3)
+            check(d.shape == (608, 800) and np.array_equal(d, ref),
+                  "the 608x800 map differs from its .npy twin")
+        print(f"megadepth 608x800 float32 depth map, gzip-chunked (38, "
+              f"100), read by utils/hdf5 in ms "
+              f"{[round(x, 3) for x in full_ms]} (median "
+              f"{sorted(full_ms)[2]:.3f}), equal to its .npy twin, on the "
+              f"host of {label}")
+        out["depth_608x800_ms"] = full_ms
+        views = md.load_all_views(str(fixture), (W, H))
+        files = []
+        for npz in sorted((fixture / "train_data").rglob("*.npz")):
+            info = np.load(npz, allow_pickle=True)
+            files += [fixture / "MegaDepth_v1" / str(p)
+                      for p in info["image_paths"]]
+        image_ms = []
+        for j, p in enumerate(files):
+            t0 = time.perf_counter()
+            img = resize(imread_gray(p), (H, W))
+            image_ms.append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(views["images"][j, ..., 0], img),
+                  f"load_all_views' image {p.name} differs from its decode")
+        print(f"megadepth fixture with cv2 and h5py unimportable: "
+              f"{len(depth_ms)} depth maps (240x320 float32, gzip-chunked "
+              f"and contiguous) equal their .npy twins, read in ms "
+              f"{[round(x, 3) for x in depth_ms]}; {len(files)} images "
+              f"(JPEG and color PNG) decoded and resized to {W}x{H} in ms "
+              f"{[round(x, 3) for x in image_ms]}, on the host of {label}")
+        out["depth_ms"], out["image_ms"] = depth_ms, image_ms
+
+        # ---- (b) train.run.main at the recipe's width ---------------------
+        links = tmp / "holdout"
+        links.mkdir()
+        for i, png in enumerate(sorted(holdout.rglob("*.png"))):
+            os.symlink(png, links / f"{i:03d}.png")
+        base = ["--megadepth_root_path", str(fixture), "--training_res",
+                f"{W},{H}", "--save_ckpt_every", "1000"]
+        runs = {
+            "resident": ["--training_type", "xfeat_megadepth",
+                         "--batch_size", "6", "--n_steps", "3",
+                         "--md_resident"],
+            "streamed": ["--training_type", "xfeat_megadepth",
+                         "--batch_size", "6", "--n_steps", "3"],
+            "default": ["--training_type", "xfeat_default",
+                        "--batch_size", "10", "--n_steps", "2",
+                        "--synthetic_root_path", str(links)]}
+        for tag, extra in runs.items():
+            t0 = time.time()
+            hist = xrun.main(["--ckpt_save_path", str(tmp / tag), *base,
+                              *extra])
+            n = int(extra[extra.index("--n_steps") + 1])
+            check(len(hist) == n and all(np.isfinite(h["loss_total"])
+                                         for h in hist),
+                  f"train.run.main ({tag}) did not take {n} finite steps: "
+                  f"{hist}")
+            print(f"megadepth train.run.main {tag} ({' '.join(extra[:4])}"
+                  f"): losses {[h['loss_total'] for h in hist]}, step walls "
+                  f"s {[round(h['wall_s'], 4) for h in hist]}, run "
+                  f"{time.time() - t0:.1f} s on {label}")
+            out[f"main_{tag}"] = [(h["loss_total"], h["wall_s"])
+                                  for h in hist]
+
+        # ---- (c) the resident batch against the streamed one --------------
+        res = xrun.ResidentMegaDepthBatcher(str(fixture), 6, (W, H), 1024,
+                                            dev, verbose=False)
+        rp = res.pairs(torch.arange(res.n_pairs, device=dev))
+        items = []
+        for npz in sorted((fixture / "train_data").rglob("*.npz")):
+            ds = md.MegaDepthDataset(str(fixture / "MegaDepth_v1"),
+                                     str(npz), (W, H))
+            items += [ds[i] for i in range(len(ds))]
+        sp = {k: torch.from_numpy(v).to(dev)
+              for k, v in md.collate(items).items()}
+        for k in ("K0", "K1", "scale0", "scale1"):
+            check(torch.equal(rp[k], sp[k]), f"resident {k} != streamed")
+        # CUDA divides the resident uint8 by 255 as a product with the
+        # reciprocal, numpy divides the streamed one: 1 ulp apart
+        for k in ("image0", "image1"):
+            check(float((rp[k] - sp[k]).abs().max()) <= 2.0 ** -24,
+                  f"resident {k} != streamed")
+        for k in ("T_0to1", "T_1to0"):
+            check(torch.allclose(rp[k], sp[k], atol=1e-5),
+                  f"resident {k} != streamed")
+        hd, wd = rp["depth0"].shape[1:]
+        worst = 0.0
+        for k in ("depth0", "depth1"):
+            ref = sp[k][:, :hd, :wd]
+            check(not sp[k][:, hd:].any() and not sp[k][:, :, wd:].any(),
+                  "the streamed depth pad is not zero")
+            rel = ((rp[k] - ref).abs() / ref.abs().clamp_min(1e-30))
+            worst = max(worst, float(rel.max()))
+        check(worst <= 2.0 ** -8, f"resident depths differ from streamed by "
+              f"{worst} (bfloat16 rounds within 2^-8 relative)")
+        # the ground truth from the same draws, against the streamed batch
+        # with its depths rounded to bfloat16 as the resident ones are: a
+        # correspondence is keyed by its view-1 end (grid coordinates);
+        # the two differ only at the depth map's border (the resident map
+        # is clamped at its edge, the streamed one padded with zeros, as in
+        # the JAX package's two batchers), so >= 0.99 of a pair's are
+        # shared and their view-0 ends agree within 1e-3
+        sp16 = dict(sp, **{k: sp[k].to(torch.bfloat16).float()
+                           for k in ("depth0", "depth1")})
+        gt = []
+        for pairs in (rp, sp16):
+            g = torch.Generator(device=dev).manual_seed(11)
+            gt.append(xrun.depth_ground_truth(pairs, 1024, g))
+        shares, moved = [], 0.0
+        for key, valid in (("corrs", "corr_valid"),
+                           ("corrs_full", "corr_full_valid")):
+            for i in range(len(items)):
+                ends = [{tuple(r[2:]): r[:2] for r in b[key][i][
+                    b[valid][i]].tolist()} for b in gt]
+                both = ends[0].keys() & ends[1].keys()
+                shares.append(len(both) / max(len(ends[0]), len(ends[1]), 1))
+                moved = max([moved] + [max(abs(ends[0][c][0] - ends[1][c][0]),
+                                           abs(ends[0][c][1] - ends[1][c][1]))
+                                       for c in both])
+        n_corr = gt[0]["corr_valid"].sum(-1).tolist()
+        print(f"megadepth resident against streamed, 6 pairs: K, scales "
+              f"equal, images within 1 ulp, poses within 1e-5; depths "
+              f"within {worst:.3g} relative "
+              f"(bfloat16); ground truth from the same draws (coarse, then "
+              f"full-resolution) shared {[round(x, 4) for x in shares]}, "
+              f"view-0 ends within {moved:.3g}; correspondences a pair "
+              f"{n_corr}")
+        check(min(shares) >= 0.99 and moved <= 1e-3 and min(n_corr) >= 30,
+              f"the resident batch's ground truth differs from the streamed "
+              f"one's: {shares}, {moved}")
+        batch = gt[0]
+
+        # ---- (d) step 1 on the card against the CPU path ------------------
+        cfg = tt.TrainConfig(lr=3e-4, use_distill=False, use_kp_position=True)
+        params_cpu = params_from_jax(init_xfeat_params())
+        params = optim.tree_map(lambda t: t.to(dev), params_cpu)
+        loss, (met, _), grads = tt.value_and_grad(params, batch, None, cfg)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss_c, _, grads_c = tt.value_and_grad(
+            params_cpu, {k: v.cpu() for k, v in batch.items()}, None, cfg)
+        zero = {f"fine_matcher/{i}/b" for i in range(4)}
+        (w1, l1), (w2, l2) = grads_agree(grads, grads_c, zero)
+        print(f"megadepth step 1, card against CPU ({time.time() - t0:.1f} s "
+              f"there): loss {float(loss)!r} vs {float(loss_c)!r}; worst "
+              f"leaf {l1} max |diff| {w1:.3g} of its max |g|, {l2} "
+              f"||diff|| {w2:.3g} of ||g||")
+        check(abs(float(loss) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+              and w1 <= 5e-2 and w2 <= 1e-2,
+              "the MegaDepth step's card gradients differ from the CPU's")
+        out["grad_worst"] = (w1, l1, w2, l2)
+
+        # ---- (e) streamed step walls without and with the prefetch thread -
+        state = {"s": tt.init_train_state(params, cfg)}
+        gen = torch.Generator(device=dev).manual_seed(3)
+        streamed = xrun.MegaDepthBatcher(
+            md.MegaDepthLoader(str(fixture), 6, (W, H)), 1024, dev)
+
+        def steps(prefetch, n=4):
+            get = xrun.Prefetcher(streamed.next, dev) if prefetch \
+                else streamed.next
+            walls = []
+            try:
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    state["s"], _ = tt.train_step(state["s"], get(), gen, cfg)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                if prefetch:
+                    get.stop()
+            return walls
+        turns = [(tag, steps(tag == "prefetch"))
+                 for tag in ("plain", "prefetch", "prefetch", "plain")]
+        for tag, walls in turns:
+            print(f"megadepth streamed step walls ms, {tag}: "
+                  f"{[round(x, 3) for x in walls]}")
+        med = {tag: float(np.median([w for t, ws in turns if t == tag
+                                     for w in ws[1:]]))
+               for tag in ("plain", "prefetch")}
+        print(f"megadepth streamed step median wall (first step of each turn "
+              f"left out) ms: without the prefetch thread {med['plain']:.3f}, "
+              f"with it {med['prefetch']:.3f}, on {label}")
+        out["walls"] = med
+        profile_call("megadepth train step B=6 800x608 (resident batch)",
+                     lambda: tt.train_step(state["s"], batch, gen, cfg)[0])
+        out["batch"] = {k: v.cpu().numpy() for k, v in batch.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for m, mod in saved.items():
+            if mod is None:
+                del sys.modules[m]
+            else:
+                sys.modules[m] = mod
+    return out
+
+
+# the five sharded paths on each mesh, and what they are held to
+MULTIGPU_MESHES = {"train": (2, 1), "extract": (2, 1), "mnn": (1, 2),
+                   "lighterglue": (1, 2), "ba": (2, 1)}
+
+
+def multigpu_inputs(root: Path, batch: dict) -> dict:
+    """Numpy inputs of the multi-GPU phase: the MegaDepth batch (6 pairs
+    at 800x608) and initial extractor tree for the train step, 4 seeded
+    800x608 textures for extraction, the trained extractor and matcher
+    paths, and a bundle-adjustment problem (8 cameras, two fixed, 4000
+    points seen by every camera, noisy)."""
+    import numpy as np
+
+    from accelerated_features_tpu_torch.models.params import \
+        init_xfeat_params
+    rng = np.random.default_rng(21)
+    n_cams, n_pts = 8, 4000
+    pts = (rng.uniform(-1, 1, (n_pts, 3)) + [0, 0, 5]).astype(np.float32)
+    cams = np.zeros((n_cams, 6), np.float32)
+    cams[:, 3] = np.linspace(-0.5, 0.5, n_cams)
+    cams[:, 1] = np.linspace(-0.05, 0.05, n_cams)
+    obs_cam = np.repeat(np.arange(n_cams), n_pts)
+    obs_pt = np.tile(np.arange(n_pts), n_cams)
+    Xc = pts[obs_pt] + cams[obs_cam, 3:]   # small rotations left out
+    uv = Xc[:, :2] / Xc[:, 2:] * 500.0 + [400.0, 304.0]
+    fixed = np.zeros(n_cams, bool)
+    fixed[:2] = True
+    noisy = cams + rng.normal(0, 0.01, cams.shape).astype(np.float32)
+    noisy[fixed] = cams[fixed]
+    ba = {"cams": noisy, "points": pts + rng.normal(
+              0, 0.02, pts.shape).astype(np.float32),
+          "K": np.array([[500.0, 0, 400], [0, 500.0, 304], [0, 0, 1]],
+                        np.float32),
+          "obs_cam": obs_cam, "obs_pt": obs_pt,
+          "obs_uv": (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32),
+          "obs_mask": np.ones(len(obs_cam), bool), "fixed_cams": fixed}
+    return {"batch": batch, "init": init_xfeat_params(),
+            "images": np.stack([texture(s, H, W) for s in range(4)]),
+            "weights": str(root / "artifacts" / "run_md_ckpt13250.npz"),
+            "lg_weights": str(root / "artifacts" /
+                              "lighterglue_ft_ckpt7791.npz"), "ba": ba}
+
+
+def multigpu_paths(inputs: dict, meshes, sharded: bool) -> dict:
+    """Run the five paths of the multi-GPU layer on the card, each on a
+    mesh of `meshes[path]` (`sharded`) or as its single-device
+    counterpart, with grad mode off; every result as numpy, with the walls
+    (ms, host clock, each ended by a synchronize) and the launches of
+    kernels A, B and D in each call (their counts set to 0 just before)."""
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch.models.lighterglue import \
+        lighterglue_forward
+    from accelerated_features_tpu_torch.models.params import (
+        load_lighterglue_params, load_params, params_from_jax)
+    from accelerated_features_tpu_torch.ops.cuda.attention import \
+        flash_attention
+    from accelerated_features_tpu_torch.ops.cuda.bicubic import \
+        sample_descriptors
+    from accelerated_features_tpu_torch.ops.cuda.detect_fused import \
+        topk_keypoints_fused
+    from accelerated_features_tpu_torch.ops.extraction import \
+        detect_and_compute
+    from accelerated_features_tpu_torch.ops.matching import mnn_match
+    from accelerated_features_tpu_torch.parallel import ba as pba
+    from accelerated_features_tpu_torch.parallel.lighterglue_sp import \
+        lighterglue_forward_sp
+    from accelerated_features_tpu_torch.parallel.matching import (
+        mnn_match_sp, sharded_detect_and_compute)
+    from accelerated_features_tpu_torch.parallel.mesh import make_mesh
+    from accelerated_features_tpu_torch.sfm.ba import BAProblem, bundle_adjust
+    from accelerated_features_tpu_torch.train import optim
+    from accelerated_features_tpu_torch.train import trainer as tt
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kernels = {"detect_fused": topk_keypoints_fused,
+               "bicubic": sample_descriptors, "attention": flash_attention}
+    out: dict = {"walls": {}, "launches": {}}
+
+    def np_tree(t):
+        return optim.tree_map(lambda x: x.detach().cpu().numpy(), t)
+
+    def timed(name, fn):
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out["walls"][name] = (time.perf_counter() - t0) * 1e3
+        out["launches"][name] = {k: f.launches for k, f in kernels.items()}
+        return result
+
+    mesh = {p: make_mesh(s) for p, s in meshes.items()} if sharded else {}
+    for m in mesh.values():   # NCCL sets a group up at its first call
+        for axis in ("data", "model"):
+            m.all_reduce(torch.ones(1, device=dev), axis)
+            m.all_gather(torch.ones(1, device=dev), axis)
+    grad_mode = torch.is_grad_enabled()
+    torch.set_grad_enabled(False)
+    try:
+        # the train step (kp_position: no random draw)
+        cfg = tt.TrainConfig(lr=3e-4, use_distill=False, use_kp_position=True)
+        state = tt.init_train_state(optim.tree_map(
+            lambda t: t.to(dev), params_from_jax(inputs["init"])), cfg)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in inputs["batch"].items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        if sharded:
+            step_fn, st, shard_batch = tt.make_sharded_train_step(
+                mesh["train"], state, batch, cfg)
+            local = shard_batch(batch)
+            new, met = timed("train", lambda: step_fn(st, local, gen))
+            new = tt.gather_state(mesh["train"], new)
+        else:
+            new, met = timed("train", lambda: tt.train_step(state, batch, gen,
+                                                            cfg))
+        out["train"] = {"metrics": {k: float(v) for k, v in met.items()},
+                        "mu": np_tree(new["opt_state"][1].mu),
+                        "params": np_tree(new["params"])}
+
+        # extraction with the trained extractor (kernels A and B)
+        params = optim.tree_map(lambda t: t.to(dev),
+                                load_params(inputs["weights"]))
+        images = torch.from_numpy(inputs["images"][..., None]).to(dev)
+        if sharded:
+            feats = timed("extract", lambda: sharded_detect_and_compute(
+                mesh["extract"], params, images, top_k=TOP_K,
+                detection_threshold=THR))
+        else:
+            feats = timed("extract", lambda: detect_and_compute(
+                params, images, top_k=TOP_K, detection_threshold=THR))
+        out["extract"] = {k: v.cpu().numpy() for k, v in feats.items()}
+
+        # MNN between images 0 and 1's descriptors (of the single-device call)
+        d = inputs.get("descs")
+        if d is not None:
+            t = {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+            mnn = []
+            for gate in (-1.0, 0.82):
+                if sharded:
+                    r = timed(f"mnn@{gate}", lambda: mnn_match_sp(
+                        mesh["mnn"], t["d0"], t["d1"], t["v0"], t["v1"], gate))
+                else:
+                    r = timed(f"mnn@{gate}", lambda: mnn_match(
+                        t["d0"], t["d1"], t["v0"], t["v1"], gate))
+                mnn.append(tuple(x.cpu().numpy() for x in r))
+            out["mnn"] = mnn
+
+            # LighterGlue on those keypoints (kernel D)
+            lg = optim.tree_map(lambda x: x.to(dev),
+                                load_lighterglue_params(inputs["lg_weights"]))
+            size = torch.tensor([[float(W), float(H)]], device=dev)
+            args = (lg, t["k0"][None], t["k1"][None], t["d0"][None],
+                    t["d1"][None], size, size, t["v0"][None], t["v1"][None])
+            if sharded:
+                m0, s0 = timed("lighterglue", lambda: lighterglue_forward_sp(
+                    mesh["lighterglue"], *args))
+            else:
+                r = timed("lighterglue", lambda: lighterglue_forward(*args))
+                m0, s0 = r["matches0"], r["mscores0"]
+            out["lighterglue"] = (m0.cpu().numpy(), s0.cpu().numpy())
+
+        # bundle adjustment, observations and then the map sharded
+        prob = BAProblem(**{k: torch.from_numpy(np.asarray(v)).to(dev)
+                            for k, v in inputs["ba"].items()})
+        for name, fn in (
+                ("ba_sharded", pba.bundle_adjust_sharded),
+                ("ba_point_sharded", pba.bundle_adjust_point_sharded)):
+            if sharded:
+                solved, stats = timed(name, lambda: fn(prob, mesh["ba"],
+                                                       iters=8, cg_iters=25))
+            else:
+                solved, stats = timed(name, lambda: bundle_adjust(
+                    prob, iters=8, cg_iters=25))
+            out[name] = (solved.cams.cpu().numpy(),
+                         solved.points.cpu().numpy(),
+                         {k: float(v) for k, v in stats.items()})
+    finally:
+        torch.set_grad_enabled(grad_mode)
+    return out
+
+
+def gloo_rank(rank: int, inputs: dict) -> dict:
+    """One of the ranks of the multi-GPU phase's gloo group on the card."""
+    from accelerated_features_tpu_torch.ops.cuda import _build
+    _build.build_all()   # built by the parent; loads what it finds
+    return multigpu_paths(inputs, MULTIGPU_MESHES, True)
+
+
+def compare_multigpu(got: dict, ref: dict, tag: str) -> dict:
+    """Hold one run of the sharded paths to the single-device one; print
+    and return the agreement of each, with the tolerance stated:
+    - train step: loss within 1e-5 relative; Adam's mu (0.1 x the clipped
+      gradient) within `train_phase`'s gradient gates (5e-2 of a leaf's
+      max, 1e-2 of its norm: float32 BatchNorm sums in another order can
+      take a ReLU input within rounding of 0 to the other side);
+    - extraction: >= 0.99 of each image's keypoints shared, their
+      descriptors within 1e-4;
+    - MNN: >= 0.99 of the matches shared (another column split may take a
+      float32 near-tie the other way);
+    - LighterGlue: >= 0.99 of the matches shared, the shared matches'
+      scores within 1e-4;
+    - bundle adjustment: the final cost within 1e-4 relative, cameras and
+      points within 2e-3 + 1e-3 relative (the JAX package's test)."""
+    import numpy as np
+
+    agree: dict = {}
+    gm, rm = got["train"]["metrics"], ref["train"]["metrics"]
+    zero = {f"fine_matcher/{i}/b" for i in range(4)}
+    (w1, l1), (w2, l2) = grads_agree(_np_to_torch(got["train"]["mu"]),
+                                     _np_to_torch(ref["train"]["mu"]), zero)
+    rel_loss = abs(gm["loss_total"] - rm["loss_total"]) / abs(
+        rm["loss_total"])
+    agree["train"] = (rel_loss, w1, l1, w2, l2)
+    check(rel_loss <= 1e-5 and w1 <= 5e-2 and w2 <= 1e-2,
+          f"{tag}: the sharded train step differs: loss {rel_loss}, mu "
+          f"{l1} {w1}, {l2} {w2}")
+    shares = []
+    for i in range(len(ref["extract"]["keypoints"])):
+        a = {tuple(p): j for j, p in enumerate(
+            got["extract"]["keypoints"][i].tolist())}
+        b = {tuple(p): j for j, p in enumerate(
+            ref["extract"]["keypoints"][i].tolist())}
+        both = a.keys() & b.keys()
+        shares.append(len(both) / len(b))
+        ia, ib = [a[p] for p in both], [b[p] for p in both]
+        gap = float(np.abs(got["extract"]["descriptors"][i][ia]
+                           - ref["extract"]["descriptors"][i][ib]).max())
+        check(gap <= 1e-4, f"{tag}: sharded descriptors differ by {gap}")
+    agree["extract"] = min(shares)
+    check(min(shares) >= 0.99, f"{tag}: sharded keypoints differ {shares}")
+    if "mnn" in ref:
+        ms = []
+        for (gi, gmask), (ri, rmask) in zip(got["mnn"], ref["mnn"]):
+            a = {(i, int(gi[i])) for i in np.flatnonzero(gmask)}
+            b = {(i, int(ri[i])) for i in np.flatnonzero(rmask)}
+            ms.append(len(a & b) / max(len(a), len(b), 1))
+        agree["mnn"] = min(ms)
+        check(min(ms) >= 0.99, f"{tag}: sequence-parallel MNN differs {ms}")
+        (g0, gs), (r0, rs) = got["lighterglue"], ref["lighterglue"]
+        both = (g0 == r0) & (r0 >= 0)
+        share = both.sum() / max((r0 >= 0).sum(), (g0 >= 0).sum(), 1)
+        gap = float(np.abs(gs[both] - rs[both]).max()) if both.any() else 0.0
+        agree["lighterglue"] = (float(share), gap, int((r0 >= 0).sum()))
+        check(share >= 0.99 and gap <= 1e-4 and (r0 >= 0).sum() > 100,
+              f"{tag}: sequence-parallel LighterGlue differs: {share}, "
+              f"{gap}")
+    for name in ("ba_sharded", "ba_point_sharded"):
+        (gc, gp, gs), (rc, rp, rs) = got[name], ref[name]
+        rel = abs(gs["final_cost"] - rs["final_cost"]) / rs["final_cost"]
+        cam = float(np.abs(gc - rc).max())
+        pt = float(np.abs(gp - rp).max())
+        agree[name] = (rel, cam, pt, gs["initial_cost"], gs["final_cost"])
+        check(rel <= 1e-4 and np.allclose(gc, rc, atol=2e-3, rtol=1e-3)
+              and np.allclose(gp, rp, atol=2e-3, rtol=1e-3)
+              and gs["final_cost"] < gs["initial_cost"],
+              f"{tag}: {name} differs from one device: {agree[name]}")
+    return agree
+
+
+def _np_to_torch(tree):
+    import numpy as np
+    import torch
+    if isinstance(tree, dict):
+        return {k: _np_to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_to_torch(v) for v in tree]
+    return torch.from_numpy(np.asarray(tree))
+
+
+def multigpu_phase(root: Path, batch: dict) -> dict:
+    """The multi-GPU layer (`parallel/`, the sharded train step) on the one
+    card, held to the single-device paths on the card, two ways:
+
+    1. NCCL at world size 1, in this process: every mesh axis a group of
+       one, so every collective runs through NCCL;
+    2. two ranks on this card over gloo (spawned; gloo stages CUDA tensors
+       through the host), meshes 2x1 for the train step, extraction and
+       bundle adjustment, 1x2 for MNN and LighterGlue.
+
+    The paths: the train step on the MegaDepth batch (6 pairs at 800x608),
+    `sharded_detect_and_compute` on 4 images at 800x608 with kernels A and
+    B counted, `mnn_match_sp` and `lighterglue_forward_sp` (kernel D
+    counted) on the single-device keypoints of images 0 and 1 (4096 a
+    side), and both sharded bundle adjustments. Tolerances in
+    `compare_multigpu`. Walls are printed beside the card's name and
+    power limit; they are gloo through the host, or NCCL on one card, and
+    no scaling number. A failing rank fails the phase with its
+    traceback."""
+    import torch
+
+    from accelerated_features_tpu_torch.apps.eval_slam import device_label
+    from accelerated_features_tpu_torch.parallel import distributed
+    from accelerated_features_tpu_torch.parallel.dryrun import (
+        dryrun_multigpu, free_port, run_ranks)
+    from accelerated_features_tpu_torch.models.params import load_params
+    from accelerated_features_tpu_torch.ops.extraction import \
+        detect_and_compute
+    from accelerated_features_tpu_torch.train import optim
+    dev = torch.device("cuda")
+    label = device_label(dev)
+    inputs = multigpu_inputs(root, batch)
+    with torch.no_grad():
+        ext = detect_and_compute(
+            optim.tree_map(lambda t: t.to(dev),
+                           load_params(inputs["weights"])),
+            torch.from_numpy(inputs["images"][:2, ..., None]).to(dev),
+            top_k=TOP_K, detection_threshold=THR)
+    ext = {k: v.cpu().numpy() for k, v in ext.items()}
+    inputs["descs"] = {"d0": ext["descriptors"][0],
+                       "d1": ext["descriptors"][1],
+                       "k0": ext["keypoints"][0], "k1": ext["keypoints"][1],
+                       "v0": ext["valid"][0], "v1": ext["valid"][1]}
+    single = multigpu_paths(inputs, None, False)
+    out = {"single_walls": single["walls"]}
+
+    distributed.initialize(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        nccl = multigpu_paths(inputs, {p: (1, 1) for p in MULTIGPU_MESHES},
+                              True)
+    finally:
+        distributed.shutdown()
+    out["nccl"] = {"agree": compare_multigpu(nccl, single, "NCCL x1"),
+                   "walls": nccl["walls"], "launches": nccl["launches"]}
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(gloo_rank, 2, inputs, device="cuda", backend="gloo",
+                      timeout=900, threads=4)
+    group_s = time.perf_counter() - t0
+    out["gloo"] = {"agree": [compare_multigpu(r, single, f"gloo rank {i}")
+                             for i, r in enumerate(ranks)],
+                   "walls": [r["walls"] for r in ranks],
+                   "launches": [r["launches"] for r in ranks],
+                   "group_s": group_s}
+    for tag, launches in (("NCCL x1", [nccl["launches"]]),
+                          ("gloo x2", out["gloo"]["launches"])):
+        a = sum(lc["extract"]["detect_fused"] for lc in launches)
+        b = sum(lc["extract"]["bicubic"] for lc in launches)
+        d = sum(lc["lighterglue"]["attention"] for lc in launches)
+        check(a > 0 and b > 0 and d > 0, f"{tag}: kernels A, B, D not all "
+              f"launched in the sharded calls: A {a}, B {b}, D {d}")
+        out[f"launched {tag}"] = {"detect_fused": a, "bicubic": b,
+                                  "attention": d}
+    print(f"multigpu single device ({label}): walls ms "
+          f"{ {k: round(v, 3) for k, v in single['walls'].items()} }")
+    print(f"multigpu NCCL at world size 1 ({label}; every axis a group of "
+          f"one, not a scaling number): agreement {out['nccl']['agree']}; "
+          f"walls ms { {k: round(v, 3) for k, v in nccl['walls'].items()} }"
+          f"; launches A, B, D {out['launched NCCL x1']}")
+    for i, r in enumerate(ranks):
+        print(f"multigpu gloo rank {i} of 2 on one card ({label}; gloo "
+              f"through the host, not a scaling number): agreement "
+              f"{out['gloo']['agree'][i]}; walls ms "
+              f"{ {k: round(v, 3) for k, v in r['walls'].items()} }")
+    print(f"multigpu gloo x2: launches A, B, D over both ranks "
+          f"{out['launched gloo x2']}; the group (spawn, start-up, every "
+          f"path) {group_s:.1f} s")
+
+    # the dry run's entry point at its default device: 2 ranks on this
+    # card (gloo, fewer cards than ranks), mesh 1x2, every rank agreeing
+    t0 = time.perf_counter()
+    dry = dryrun_multigpu(2, timeout=600)
+    check(dry["mesh"] == {"data": 1, "model": 2} and dry["step"] == 1
+          and math.isfinite(dry["loss"]) and dry["sp_mnn"] > 0,
+          f"dryrun_multigpu(2) on the card: {dry}")
+    out["dryrun_s"] = time.perf_counter() - t0
+    print(f"multigpu dryrun_multigpu(2) on {label} (its default device; "
+          f"gloo through the host): {dry}, {out['dryrun_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2141,6 +2798,10 @@ def main() -> int:
     # ---- ScanNet-1500 -------------------------------------------------------
     scannet = scannet_phase(root, counters)
 
+    # ---- MegaDepth depth training, then the multi-GPU layer -----------------
+    mega = megadepth_phase(root, counters)
+    multi = multigpu_phase(root, mega["batch"])
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
@@ -2444,6 +3105,11 @@ def main() -> int:
     for row in rows:  # launches of the serve phase's requests
         if row["name"] in served["launches"]:
             row["launches_serve"] = served["launches"][row["name"]]
+    for row in rows:  # launches inside the sharded calls of the multi-GPU
+        for tag in ("NCCL x1", "gloo x2"):  # phase (gloo: both ranks)
+            if row["name"] in multi[f"launched {tag}"]:
+                row["launches_multigpu_" + tag.replace(" ", "_")] = \
+                    multi[f"launched {tag}"][row["name"]]
     for row in rows:  # launches in the 3 LighterGlue training steps
         if row["name"] in train["lg_launches"] and \
                 row["name"] != "attention_backward":

@@ -1,9 +1,9 @@
 """The names the JAX package exports exist in the port, and the functions
 the port gained for them compute what JAX's do on the same seeded inputs.
 
-Each JAX subpackage's `__all__` is walked; the stated exceptions are the
-multi-device names (`parallel`, `train.make_sharded_train_step`), which
-wait for the port's `torch.distributed` slice."""
+Each JAX subpackage's `__all__` is walked, the multi-device names
+(`parallel`, `train.make_sharded_train_step`) too: the port has them on
+`torch.distributed`."""
 
 import importlib
 import pkgutil
@@ -21,8 +21,8 @@ from accelerated_features_tpu.ops import sample as jsample
 from accelerated_features_tpu_torch import models as tmodels
 from accelerated_features_tpu_torch import ops as tops
 
-# multi-device code, ported with torch.distributed later
-EXCEPTIONS = {"parallel": None, "train": {"make_sharded_train_step"}}
+# names of the JAX package the port does not have (none left)
+EXCEPTIONS: dict = {}
 
 SUBPACKAGES = [""] + sorted(m.name for m in pkgutil.iter_modules(
     jpkg.__path__) if m.ispkg)

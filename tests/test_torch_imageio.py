@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from accelerated_features_tpu_torch.utils.imageio import (imread,
+                                                          imread_gray,
                                                           load_textures,
                                                           read_png, resize)
 
@@ -171,3 +172,45 @@ def test_resize_equals_cv2_resize():
     got = resize(im, (480, 640))
     assert got.shape == (480, 640, 3)
     assert np.array_equal(got, cv2.resize(im, (640, 480)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("color,channels", [(0, 1), (2, 3), (6, 4)],
+                         ids=["gray", "rgb", "rgba"])
+def test_imread_gray_png_equals_cv2(tmp_path, seed, color, channels):
+    """`imread_gray` of a PNG without cv2: a gray file as it is, a color
+    one through libpng's rgb-to-gray (cv2's weights, truncated), on a
+    seeded grid of sizes and of all five scanline filters."""
+    rng = np.random.default_rng(100 * seed + color)
+    for filt in range(5):
+        h, w = (int(x) for x in rng.integers(1, 240, 2))
+        pixels = rng.integers(0, 256, (h, w, channels), dtype=np.uint8)
+        pixels[: h // 3, :, :] = pixels[: h // 3, :, :1]  # gray-valued rows
+        path = tmp_path / f"{filt}.png"
+        _write_png(path, pixels if channels > 1 else pixels[..., 0], color,
+                   [filt, (filt + 2) % 5])
+        ref = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+        got = imread_gray(path)
+        assert got.dtype == np.uint8 and got.shape == (h, w)
+        assert np.array_equal(got, ref), (filt, h, w)
+        assert np.array_equal(imread_gray(path.read_bytes()), ref)
+
+
+def test_imread_gray_of_cv2_written_pngs_and_the_holdout(tmp_path):
+    im = np.random.default_rng(5).integers(0, 256, (197, 231, 3),
+                                           dtype=np.uint8)
+    path = tmp_path / "cv2.png"
+    cv2.imwrite(str(path), im)
+    assert np.array_equal(imread_gray(path),
+                          cv2.imread(str(path), cv2.IMREAD_GRAYSCALE))
+    for p in HOLDOUT_PNGS[:3]:
+        assert np.array_equal(imread_gray(p),
+                              cv2.imread(str(p), cv2.IMREAD_GRAYSCALE))
+    assert imread_gray(tmp_path / "missing.png") is None
+
+
+def test_imread_gray_refuses_a_png_it_cannot_read(tmp_path):
+    path = tmp_path / "p16.png"
+    _write_png(path, np.zeros((4, 4, 3), np.uint8), 2, [0], depth=16)
+    with pytest.raises(ValueError, match="p16.png"):
+        imread_gray(path)

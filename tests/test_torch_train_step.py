@@ -310,7 +310,10 @@ def test_run_dry_run_on_the_cpu(tmp_path):
     assert len(history) == 10
     assert all(np.isfinite(h["loss_total"]) for h in history)
     assert history[-1]["loss_total"] < history[0]["loss_total"]
-    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+    # beside the checkpoints only the tensorboard log, as in the JAX
+    # package, when `tensorboard` imports
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()
+                  if p.name != "logdir") == [
         "ckpt_00000004.npz", "ckpt_00000008.npz"]
     # resume: the run goes on from step 8 to the dry run's 10 steps
     again = trun.main(["--ckpt_save_path", str(tmp_path / "ck"),
@@ -330,9 +333,11 @@ def test_run_on_an_image_folder(tmp_path):
         g = rng.uniform(0, 255, (12, 16, 3)).astype(np.uint8)
         cv2.imwrite(str(folder / f"im{i}.png"),
                     cv2.resize(g, (160, 120), interpolation=cv2.INTER_CUBIC))
-    with pytest.raises(NotImplementedError, match="depth reader"):
+    # a depth root without MegaDepth's layout is refused
+    with pytest.raises(FileNotFoundError, match="no scene indices"):
         trun.main(["--ckpt_save_path", str(tmp_path / "x"),
-                   "--megadepth_root_path", str(folder), "--device", "cpu"])
+                   "--megadepth_root_path", str(folder), "--training_type",
+                   "xfeat_megadepth", "--device", "cpu"])
     history = trun.main([
         "--ckpt_save_path", str(tmp_path / "ck"), "--synthetic_root_path",
         str(folder), "--device", "cpu", "--training_res", "192,128",
