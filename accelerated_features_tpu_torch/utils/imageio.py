@@ -20,10 +20,17 @@
   Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files
   raise `ValueError` naming the kind; nothing falls back to cv2.
 * `imread` dispatches on the file's signature (PNG, JPEG, else cv2,
-  imported only then); `imread_gray` reads a PNG in gray as cv2 does
-  (libpng's rgb-to-gray for color), a JPEG's gray plane, other formats
-  by cv2; `resize` is cv2's `INTER_LINEAR` `cv2.resize`,
+  imported only then); `imread_if_image` reads a PNG or JPEG and gives
+  None for any other file, never importing cv2, and `read_frames` reads
+  the frames of a directory with it; `imread_gray` reads a PNG in gray
+  as cv2 does (libpng's rgb-to-gray for color), a JPEG's gray plane,
+  other formats by cv2; `resize` is cv2's `INTER_LINEAR` `cv2.resize`,
   fixed-point for uint8, in numpy.
+* `write_png`: 8-bit gray or BGR arrays as PNG files (filter 0, zlib),
+  which `read_png` and `cv2.imread` read back equal.
+* `warp_perspective`: `cv2.warpPerspective(im, H, dsize)` with its
+  defaults (`INTER_LINEAR`, `BORDER_CONSTANT` 0), equal to cv2's float32
+  kernels (OpenCV >= 4.11) pixel for pixel.
 * `load_textures`: the texture-crop loader of the rendered datasets
   (counterpart of `apps/render_depth_dataset.load_textures`).
 """
@@ -31,6 +38,8 @@
 from __future__ import annotations
 
 import ctypes
+import glob
+import os
 import struct
 import threading
 import zlib
@@ -136,6 +145,31 @@ def read_png(path: Union[str, Path], gray: bool = False) -> np.ndarray:
         return decode_png(Path(path).read_bytes(), gray)
     except ValueError as e:
         raise ValueError(f"{path}: {e}") from None
+
+
+def write_png(path: Union[str, Path], im: np.ndarray) -> None:
+    """Write an (H, W) gray or (H, W, 3) BGR uint8 array as an 8-bit PNG
+    (gray or RGB, every scanline filter 0, zlib level 6), as
+    `cv2.imwrite` takes such arrays; `read_png` and `cv2.imread` read it
+    back equal."""
+    im = np.asarray(im)
+    if im.dtype != np.uint8 or not (im.ndim == 2 or (im.ndim == 3
+                                                     and im.shape[2] == 3)):
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3) uint8, not "
+                         f"{im.shape} {im.dtype}")
+    h, w = im.shape[:2]
+    color = 0 if im.ndim == 2 else 2
+    rows = (im if color == 0 else im[..., ::-1]).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    Path(path).write_bytes(
+        PNG_SIGNATURE
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+        + chunk(b"IEND", b""))
 
 
 JPEG_SOI = b"\xff\xd8"
@@ -533,6 +567,31 @@ def imread(path: Union[str, Path]) -> np.ndarray:
     return im
 
 
+def imread_if_image(path: Union[str, Path]) -> Optional[np.ndarray]:
+    """`imread` of a PNG or JPEG (by its signature), and None for any
+    other file, as the frame loops of the JAX package's apps skip a file
+    on which `cv2.imread` gives None (`gt.npy`, a README). Never imports
+    cv2; a PNG or JPEG this module refuses raises."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == PNG_SIGNATURE or head[:2] == JPEG_SOI:
+        return imread(path)
+    return None
+
+
+def read_frames(directory: Union[str, Path], max_frames: int
+                ) -> List[Tuple[int, np.ndarray]]:
+    """(position, BGR image) of the PNG and JPEG files among the first
+    `max_frames` entries of `directory` in name order, the frame loop of
+    the JAX package's SfM and SLAM apps: other entries (`gt.npy`, a
+    README, a subdirectory) are skipped but keep their place in the
+    count."""
+    paths = sorted(glob.glob(os.path.join(str(directory), "*")))
+    frames = [(i, imread_if_image(p)) for i, p in
+              enumerate(paths[:max_frames]) if os.path.isfile(p)]
+    return [(i, f) for i, f in frames if f is not None]
+
+
 def imread_gray(path: Union[str, Path, bytes]) -> Optional[np.ndarray]:
     """(H, W) uint8, as `cv2.imread(path, cv2.IMREAD_GRAYSCALE)` (the JAX
     package's `train/megadepth.imread_gray`), of a file or of its bytes
@@ -634,6 +693,110 @@ def resize(im: np.ndarray, size_hw) -> np.ndarray:
     s0 = q[y0][:, sx] * ax0 + q[y0][:, x1] * ax1
     s1 = q[y1][:, sx] * ax0 + q[y1][:, x1] * ax1
     return (s0 * by0 + s1 * by1).astype(np.float32)
+
+# cv2's float32 warp kernels map 16 output pixels of a row at a time with
+# one rounding of the row's terms, and the row's remaining pixels one by
+# one with another (OpenCV's universal intrinsics at 16 float lanes)
+_WARP_LANES = 16
+
+
+def _invert3(m: np.ndarray) -> np.ndarray:
+    """cv::invert of a 3x3 float64 matrix (DECOMP_LU takes the adjugate
+    over the determinant at this size), its 9 entries row-major."""
+    det = (m[0, 0] * (m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1])
+           - m[0, 1] * (m[1, 0] * m[2, 2] - m[1, 2] * m[2, 0])
+           + m[0, 2] * (m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0]))
+    if det == 0:
+        return np.zeros(9)
+    d = 1.0 / det
+    return np.array([
+        (m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1]) * d,
+        (m[0, 2] * m[2, 1] - m[0, 1] * m[2, 2]) * d,
+        (m[0, 1] * m[1, 2] - m[0, 2] * m[1, 1]) * d,
+        (m[1, 2] * m[2, 0] - m[1, 0] * m[2, 2]) * d,
+        (m[0, 0] * m[2, 2] - m[0, 2] * m[2, 0]) * d,
+        (m[0, 2] * m[1, 0] - m[0, 0] * m[1, 2]) * d,
+        (m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0]) * d,
+        (m[0, 1] * m[2, 0] - m[0, 0] * m[2, 1]) * d,
+        (m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]) * d])
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 a * b + c rounded once, as a fused multiply-add: the
+    product is exact in float64, the sum is taken in float64 rounded to
+    odd (TwoSum's error decides the last bit), and rounding that to
+    float32 is then the correctly rounded result."""
+    p = np.multiply(a, b, dtype=np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    fix = np.nonzero((err != 0) & ((s.view(np.int64) & 1) == 0))
+    s[fix] = np.nextafter(s[fix], np.where(err[fix] > 0, np.inf, -np.inf))
+    return s.astype(np.float32)
+
+
+def warp_perspective(im: np.ndarray, H: np.ndarray,
+                     dsize: Tuple[int, int]) -> np.ndarray:
+    """`cv2.warpPerspective(im, H, dsize)` with its defaults: output pixel
+    (x, y) samples `im` at H^-1 (x, y) by `INTER_LINEAR`, taps outside the
+    image read 0 (`BORDER_CONSTANT`), each tap on its own. `im`: (H, W),
+    or (H, W, C) with C in 1, 3, 4, uint8 or float32; one channel comes
+    back 2-D, as cv2 gives it; `dsize` is (width, height).
+
+    The arithmetic is that of cv2's float32 kernels, to the bit: H is
+    inverted in float64 (`cv::invert`) and rounded to float32; a row's
+    terms y M1 + M2, y M4 + M5 and y M7 + M8 are rounded once each, and
+    each pixel's x M0 + that term is one fused multiply-add, except for
+    the row's last width % 16 pixels, which take (x M0 + y M1) + M2 with
+    the first product fused; x = X / W; the bilinear weights are the
+    float32 fractions of x and y, and the taps are blended by three fused
+    multiply-adds (p00 + a (p01 - p00), then along y); uint8 rounds half
+    to even and saturates."""
+    if im.dtype not in (np.uint8, np.float32):
+        raise ValueError(f"warp_perspective takes uint8 or float32, not "
+                         f"{im.dtype}")
+    src = im if im.ndim == 3 else im[..., None]
+    if im.ndim not in (2, 3) or src.shape[2] not in (1, 3, 4):
+        raise ValueError(f"warp_perspective takes (H, W) or (H, W, 1|3|4) "
+                         f"images, not {im.shape}")
+    w, h = (int(v) for v in dsize)
+    m = _invert3(np.asarray(H, np.float64).reshape(3, 3)).astype(np.float32)
+    f32 = np.float32
+    y = np.arange(h, dtype=f32)[:, None]
+    x = np.arange(w, dtype=f32)[None, :]
+    x0 = (w // _WARP_LANES) * _WARP_LANES
+
+    def mapped(a, b, c):
+        out = _fma32(x, m[a], (y * m[b]).astype(f32) + m[c])
+        out[:, x0:] = _fma32(x[:, x0:], m[a], (y * m[b]).astype(f32)) + m[c]
+        return out
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        den = mapped(6, 7, 8)
+        sx, sy = mapped(0, 1, 2) / den, mapped(3, 4, 5) / den
+        # far off the image (or W = 0) every tap is a border tap
+        inside = (np.abs(sx) < 1 << 24) & (np.abs(sy) < 1 << 24)
+    sx, sy = np.where(inside, sx, f32(-2)), np.where(inside, sy, f32(-2))
+    fx, fy = np.floor(sx), np.floor(sy)
+    ax, ay = (sx - fx)[..., None], (sy - fy)[..., None]
+    # a zero frame around the image: a tap off the image lands on it
+    sh, sw, ch = src.shape
+    pad = np.zeros((sh + 2, sw + 2, ch), f32)
+    pad[1:-1, 1:-1] = src
+    pad = pad.reshape(-1, ch)
+    ix = np.clip(fx.astype(np.int64) + 1, 0, sw + 1)
+    ix1 = np.clip(fx.astype(np.int64) + 2, 0, sw + 1)
+    row0 = np.clip(fy.astype(np.int64) + 1, 0, sh + 1) * (sw + 2)
+    row1 = np.clip(fy.astype(np.int64) + 2, 0, sh + 1) * (sw + 2)
+    p00, p01 = pad[row0 + ix], pad[row0 + ix1]
+    p10, p11 = pad[row1 + ix], pad[row1 + ix1]
+    v0 = _fma32(ax, p01 - p00, p00)
+    v1 = _fma32(ax, p11 - p10, p10)
+    out = _fma32(ay, v1 - v0, v0)
+    if im.dtype == np.uint8:
+        out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out[..., 0] if ch == 1 else out
+
 
 def load_textures(tex_dir: Union[str, Path], n: int, rng: np.random.Generator,
                   res: Tuple[int, int] = (256, 256)) -> List[np.ndarray]:

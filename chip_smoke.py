@@ -77,7 +77,16 @@ Run from the root of a checkout. In order, it
      NCCL world size 1 in this process and on two gloo ranks sharing the
      card (spawned), then `parallel/dryrun.dryrun_multigpu(2)` at its
      default device, the card;
- 11. times each kernel against its plain version, its bound and, where one
+ 11. drives the command-line apps and examples (`apps_phase`) with cv2
+     unimportable: `apps/eval_synthetic` over the holdout (MNN, XFeat* and
+     LighterGlue rows; A, B, C, D and `topk_exact` counted; the first
+     pairs against the CPU path), `apps/sfm_pipeline` and `apps/slam_demo`
+     on 16 rendered 640x480 frames (ATE; the BA must lower the RMSE),
+     `apps/register_demo` offline (>= 50 inliers, the written PNG equal to
+     the drawing), `apps/profile_extraction` in bfloat16 and float32 (no
+     stage under its speed-of-light floor), `apps/minimal_example` and
+     `examples/torch_01`, `_02`, `_05`, `_09`;
+ 12. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function (D's
      backward also at LighterGlue training's shape), and profiles one call
      of each matcher.
@@ -2081,6 +2090,247 @@ def multigpu_phase(root: Path, batch: dict) -> dict:
     return out
 
 
+APPS_PAIRS = 20          # eval_synthetic pairs a row
+APPS_FRAMES = 16         # frames of the SfM and SLAM demos (640x480)
+# the examples and their arguments: example 09 tracks 8 of its 16 frames
+# (its 16 took 22 s of a 100 s phase on an H100 80GB HBM3 at 700 W)
+APPS_EXAMPLES = {"torch_01_matching.py": [], "torch_02_homography.py": [],
+                 "torch_05_lighterglue.py": [],
+                 "torch_09_slam_ate.py": ["--frames", "8"]}
+
+
+def apps_phase(root: Path, counters: dict) -> dict:
+    """The command-line apps and examples of the port on the card, each
+    through its `main` as a user runs it, with cv2 made unimportable for
+    the whole phase and each app's kernel launches counted on their own:
+
+    (a) `apps/eval_synthetic` over the 60 holdout PNGs (a temporary flat
+        directory of links; the app globs its directory itself), 20 pairs,
+        the trained extractor as `--ckpt`, in three rows: `--matcher mnn`
+        (A, B, C), `star` (`topk_exact`, C) and `lighterglue` with the
+        trained matcher at gate 0.01 (A, B, D); then the first 5 pairs'
+        warped images made twice must be equal and `match_xfeat` on the
+        card must share >= 0.98 of its matches with the port's CPU path
+        (the tolerance `slam_phase` holds);
+    (b) `apps/sfm_pipeline` and `apps/slam_demo` on 16 frames of the SLAM
+        benchmark's trajectory (640x480, written by `write_png`, with a
+        `gt.npy` beside them that the frame loops must skip): each must
+        finish with a finite ATE, the SfM bundle adjustment must lower
+        the reprojection RMSE, and A, B and C must run;
+    (c) `apps/register_demo` offline on the first holdout pair with XFeat
+        and XFeat*: >= 50 inliers each, and the written PNG must read back
+        (`read_png`) to the array `draw` made;
+    (d) `apps/profile_extraction` at its defaults (640x480, B = 64,
+        bfloat16) and in float32 with the fused stem: no stage may take
+        less than its speed-of-light floor (SoL <= 1.05 x the time);
+    (e) `apps/minimal_example` and `examples/torch_01`, `_02`, `_05`,
+        `_09` (8 frames), run in this process as `python <script>` runs
+        them, each ending without an exception.
+    Prints every row, ATE, wall and launch count beside the card's name
+    and power limit. Returns the launches and walls."""
+    import glob
+    import os
+    import runpy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch import XFeat
+    from accelerated_features_tpu_torch.apps import (
+        eval_synthetic, minimal_example, profile_extraction, register_demo,
+        sfm_pipeline, slam_demo)
+    from accelerated_features_tpu_torch.apps.eval_slam import (device_label,
+                                                               gt_pose6)
+    from accelerated_features_tpu_torch.eval.megadepth1500 import load_pairs
+    from accelerated_features_tpu_torch.train.render import \
+        render_trajectory
+    from accelerated_features_tpu_torch.utils.checkpoint import \
+        checkpoint_params_tree
+    from accelerated_features_tpu_torch.utils.imageio import (load_textures,
+                                                              read_png,
+                                                              write_png)
+    label = device_label(torch.device("cuda"))
+    holdout = root / "artifacts" / "rendered_pose_holdout"
+    weights = str(root / "artifacts" / "run_md_ckpt13250.npz")
+    lg_weights = str(root / "artifacts" / "lighterglue_ft_ckpt7791.npz")
+    launches, walls = {}, {}
+
+    def counted(tag, fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        launches[tag] = {k: c.launches for k, c in counters.items()}
+        print(f"apps {tag}: {walls[tag]:.2f} s, launches {launches[tag]} "
+              f"on {label}", flush=True)
+        return out
+
+    def ran(tag, *kernels):
+        check(all(launches[tag][k] > 0 for k in kernels),
+              f"apps {tag}: a kernel of {kernels} was not launched: "
+              f"{launches[tag]}")
+
+    t_phase = time.perf_counter()
+    cwd, argv = os.getcwd(), sys.argv
+    cv2_module = sys.modules.get("cv2")
+    sys.modules["cv2"] = None   # `import cv2` raises during the phase
+    try:
+        with tempfile.TemporaryDirectory() as tmp_name:
+            tmp = Path(tmp_name)
+            os.chdir(tmp)   # the apps write their outputs to the cwd
+
+            # ---- (a) eval_synthetic, three matchers ----------------------
+            flat = tmp / "holdout_flat"
+            flat.mkdir()
+            for p in sorted(holdout.rglob("*.png")):
+                (flat / f"{p.parent.parent.name}_{p.name}").symlink_to(p)
+            common = ["--images", str(flat), "--ckpt", weights, "--pairs",
+                      str(APPS_PAIRS)]
+            rows = {}
+            for matcher, extra, kernels in (
+                    ("mnn", [], ("detect_fused", "bicubic", "mnn")),
+                    ("star", [], ("topk_exact", "mnn")),
+                    ("lighterglue", ["--lg_weights", lg_weights,
+                                     "--lg_min_conf", "0.01"],
+                     ("detect_fused", "bicubic", "attention"))):
+                rows[matcher] = counted(
+                    f"eval_synthetic {matcher}", lambda: eval_synthetic.main(
+                        [*common, "--matcher", matcher, *extra]))[0]
+                ran(f"eval_synthetic {matcher}", *kernels)
+                r = rows[matcher]
+                check(r["pairs"] == APPS_PAIRS
+                      and all(math.isfinite(r[k]) for k in (
+                          "mean_matches", "precision@3px", "mace_median_px",
+                          "h_auc@10px")) and r["homography_success"] > 0.5,
+                      f"eval_synthetic {matcher}: {r}")
+            print(f"apps eval_synthetic rows on {label}: "
+                  f"{json.dumps(rows)}")
+            print("apps eval_synthetic: the JAX rows of artifacts/README.md "
+                  "were taken on another image pool (/tmp/synth_pool_holdout,"
+                  " not in the repository), so they are no yardstick for "
+                  "these rows")
+            paths = sorted(glob.glob(str(flat / "*.png")))
+            tree = checkpoint_params_tree(weights)
+            xf_card = XFeat(tree, top_k=2048, device="cuda")
+            xf_cpu = XFeat(tree, top_k=2048, device="cpu")
+            shares = []
+            for (_, a0, a1, h_a), (_, b0, b1, h_b) in zip(
+                    eval_synthetic.synthetic_pairs(paths, 5, 0),
+                    eval_synthetic.synthetic_pairs(paths, 5, 0)):
+                check(np.array_equal(a0, b0) and np.array_equal(a1, b1)
+                      and np.array_equal(h_a, h_b),
+                      "eval_synthetic's pairs are not reproducible")
+                g = np.concatenate(xf_card.match_xfeat(a0, a1), 1)
+                c = np.concatenate(xf_cpu.match_xfeat(b0, b1), 1)
+                got = {tuple(v) for v in g.tolist()}
+                ref = {tuple(v) for v in c.tolist()}
+                shares.append(len(got & ref) / max(len(got), len(ref), 1))
+            print(f"apps eval_synthetic first 5 MNN pairs, card against the "
+                  f"CPU path: warped images equal, shares of matches "
+                  f"{[round(x, 4) for x in shares]}")
+            check(min(shares) >= 0.98, f"eval_synthetic's matches on the "
+                                       f"card disagree with the CPU: {shares}")
+
+            # ---- (b) sfm_pipeline and slam_demo on 16 rendered frames ----
+            rng = np.random.default_rng(SLAM_SEED)
+            texs = load_textures(holdout / "MegaDepth_v1", 16, rng)
+            traj = render_trajectory(rng, texs, APPS_FRAMES, SLAM_W, SLAM_H,
+                                     n_quads=16, arc_deg=35.0, loop=True)
+            frames = tmp / "frames"
+            frames.mkdir()
+            for i, im in enumerate(traj["images"]):
+                write_png(frames / f"frame_{i:03d}.png", im)
+            np.save(frames / "gt.npy",
+                    np.stack([gt_pose6(T) for T in traj["poses"]]))
+            demo = ["--images", str(frames), "--fx",
+                    repr(float(traj["K"][0, 0])), "--gt_poses",
+                    str(frames / "gt.npy")]
+            sfm_out = counted("sfm_pipeline", lambda: sfm_pipeline.main(demo))
+            ran("sfm_pipeline", "detect_fused", "bicubic", "mnn")
+            print(f"apps sfm_pipeline: {len(sfm_out['poses'])} cameras, "
+                  f"{len(sfm_out['points'])} points, reprojection RMSE "
+                  f"{sfm_out['rmse_before']:.4f} -> "
+                  f"{sfm_out['rmse_after']:.4f} px, ATE "
+                  f"{sfm_out['ate']:.4f} on {label}")
+            check(sfm_out["poses"].shape == (APPS_FRAMES, 6)
+                  and math.isfinite(sfm_out["ate"])
+                  and sfm_out["rmse_after"] < sfm_out["rmse_before"]
+                  and (tmp / "sfm_poses.npy").exists(),
+                  f"sfm_pipeline on the card: {sfm_out}")
+            slam_out = counted("slam_demo", lambda: slam_demo.main(demo))
+            ran("slam_demo", "detect_fused", "bicubic", "mnn")
+            print(f"apps slam_demo: {len(slam_out['trajectory'])} keyframes, "
+                  f"{slam_out['n_loop_closures']} loop closures, ATE "
+                  f"{slam_out['ate']:.4f} on {label}")
+            check(len(slam_out["trajectory"]) >= 2
+                  and math.isfinite(slam_out["ate"]),
+                  f"slam_demo on the card: {slam_out}")
+
+            # ---- (c) register_demo offline, XFeat and XFeat* -------------
+            names = load_pairs(str(holdout / "rendered_pose_pairs.json")
+                               )[0]["pair_names"]
+            inliers = {}
+            for method in ("XFeat", "XFeat*"):
+                out_png = tmp / "registration.png"
+                reg = counted(f"register_demo {method}",
+                              lambda: register_demo.main(
+                                  ["--method", method, "--ref",
+                                   str(holdout / names[0]), "--tgt",
+                                   str(holdout / names[1]), "--out",
+                                   str(out_png)]))
+                inliers[method] = reg["n_inliers"]
+                check(reg["n_inliers"] >= 50
+                      and np.array_equal(read_png(out_png), reg["image"]),
+                      f"register_demo {method}: {reg['n_inliers']} inliers, "
+                      f"or the written PNG differs from the drawing")
+            ran("register_demo XFeat", "detect_fused", "bicubic", "mnn")
+            ran("register_demo XFeat*", "topk_exact", "mnn")
+
+            # ---- (d) profile_extraction, bfloat16 and float32 -------------
+            tables = {}
+            for tag, args in (("bfloat16", []),
+                              ("float32 fused stem", ["--dtype", "float32",
+                                                      "--fused_stem"])):
+                tables[tag] = counted(f"profile_extraction {tag}",
+                                      lambda: profile_extraction.main(args))
+                fast = [r for r in tables[tag] if r["sol_ms"] is not None
+                        and r["sol_ms"] > 1.05 * r["ms"]]
+                check(not fast, f"profile_extraction {tag}: stages faster "
+                                f"than their speed-of-light floor: {fast}")
+            ran("profile_extraction bfloat16", "detect_fused", "bicubic")
+            ran("profile_extraction float32 fused stem", "detect_fused",
+                "bicubic", "stem_fused")
+
+            # ---- (e) minimal_example and the examples --------------------
+            counted("minimal_example", lambda: minimal_example.main([]))
+            ran("minimal_example", "detect_fused", "bicubic", "topk_exact",
+                "mnn")
+            for name, example_args in APPS_EXAMPLES.items():
+                script = str(root / "examples" / name)
+                sys.argv = [script, *example_args]
+                counted(name, lambda: runpy.run_path(script,
+                                                     run_name="__main__"))
+            ran("torch_01_matching.py", "detect_fused", "mnn", "topk_exact")
+            ran("torch_05_lighterglue.py", "attention")
+            ran("torch_09_slam_ate.py", "detect_fused", "mnn")
+    finally:
+        os.chdir(cwd)
+        sys.argv = argv
+        if cv2_module is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = cv2_module
+    phase_s = time.perf_counter() - t_phase
+    print(f"apps phase: {phase_s:.1f} s on {label}; walls s "
+          f"{ {k: round(v, 3) for k, v in walls.items()} }")
+    return {"launches": launches, "walls": walls, "rows": rows,
+            "shares": shares, "sfm": sfm_out, "slam": slam_out,
+            "inliers": inliers, "tables": tables, "phase_s": phase_s}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2802,6 +3052,9 @@ def main() -> int:
     mega = megadepth_phase(root, counters)
     multi = multigpu_phase(root, mega["batch"])
 
+    # ---- the command-line apps and examples --------------------------------
+    apps = apps_phase(root, counters)
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
@@ -3115,6 +3368,12 @@ def main() -> int:
                 row["name"] != "attention_backward":
             row["launches_lighterglue_train_3_steps"] = \
                 train["lg_launches"][row["name"]]
+    for row in rows:  # launches in each app's run of the apps phase
+        for tag, counts in apps["launches"].items():
+            if counts.get(row["name"]):
+                key = "launches_apps_" + tag.replace(".py", "").replace(
+                    "*", "_star").replace(" ", "_")
+                row[key] = counts[row["name"]]
     print(json.dumps({"kernels": rows}))
     print(device_label(dev))
     print(json.dumps({"ok": True, "device": {

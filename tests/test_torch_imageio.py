@@ -5,7 +5,10 @@
 `read_png` must equal `cv2.imread` under `np.array_equal` on every PNG of
 the committed holdout and on PNGs written here with `zlib`, one for each
 scanline filter and pixel format it accepts; the formats it does not
-accept must raise."""
+accept must raise. `write_png` round trips through `read_png` and
+`cv2.imread`, and `warp_perspective` equals `cv2.warpPerspective` under
+`np.array_equal` (no tolerance) on the holdout warped by the JAX
+benchmark's homographies and on random images of odd sizes."""
 
 import struct
 import zlib
@@ -15,10 +18,9 @@ import cv2
 import numpy as np
 import pytest
 
-from accelerated_features_tpu_torch.utils.imageio import (imread,
-                                                          imread_gray,
-                                                          load_textures,
-                                                          read_png, resize)
+from accelerated_features_tpu_torch.utils.imageio import (
+    imread, imread_gray, imread_if_image, load_textures, read_png, resize,
+    warp_perspective, write_png)
 
 ROOT = Path(__file__).resolve().parents[1]
 HOLDOUT = ROOT / "artifacts" / "rendered_pose_holdout" / "MegaDepth_v1"
@@ -214,3 +216,78 @@ def test_imread_gray_refuses_a_png_it_cannot_read(tmp_path):
     _write_png(path, np.zeros((4, 4, 3), np.uint8), 2, [0], depth=16)
     with pytest.raises(ValueError, match="p16.png"):
         imread_gray(path)
+
+
+def _holdout_homographies(n=10):
+    """The JAX benchmark's first n homographies (its generator, seed 0)
+    for the holdout's 800x608 images."""
+    from apps.eval_synthetic import gt_homography
+    rng = np.random.default_rng(0)
+    return [gt_homography(rng, 800, 608) for _ in range(n)]
+
+
+@pytest.mark.parametrize("gray", [False, True], ids=["bgr", "gray"])
+@pytest.mark.parametrize("i", range(10))
+def test_warp_perspective_equals_cv2_on_the_holdout(i, gray):
+    """uint8 BGR and gray, each of the JAX benchmark's first 10
+    homographies on a holdout PNG: equal to cv2 pixel for pixel."""
+    im = read_png(HOLDOUT_PNGS[i * 6 % len(HOLDOUT_PNGS)])
+    if gray:
+        im = cv2.cvtColor(im, cv2.COLOR_BGR2GRAY)
+    H = _holdout_homographies()[i]
+    got = warp_perspective(im, H, (800, 608))
+    ref = cv2.warpPerspective(im, H, (800, 608))
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_warp_perspective_equals_cv2_at_odd_sizes(dtype):
+    """Random images of 1, 3 and 4 channels at sizes whose rows end in a
+    partial group of 16 pixels, output sizes other than the input's,
+    homographies far from the identity (some with W crossing zero inside
+    the output): equal to cv2 under np.array_equal, float32 too."""
+    from apps.eval_synthetic import gt_homography
+    rng = np.random.default_rng(11)
+    for trial in range(16):
+        h, w = (int(v) for v in rng.integers(5, 200, 2))
+        shape = [(h, w), (h, w, 3), (h, w, 4), (h, w, 1)][trial % 4]
+        im = rng.integers(0, 256, shape).astype(np.uint8)
+        if dtype == np.float32:
+            im = im.astype(np.float32) / np.float32(3.7)
+        H = gt_homography(rng, w, h, difficulty=1.0 + 4 * trial)
+        size = (int(max(1, w + rng.integers(-9, 9))),
+                int(max(1, h + rng.integers(-9, 9))))
+        got, ref = warp_perspective(im, H, size), cv2.warpPerspective(
+            im, H, size)
+        assert got.dtype == ref.dtype and got.shape == ref.shape, trial
+        assert np.array_equal(got, ref), trial
+    H = np.array([[1, 0, 0], [0, 1, 0], [0.01, 0, 1.0]])
+    im = rng.integers(0, 256, (40, 300, 3)).astype(np.uint8)
+    assert np.array_equal(warp_perspective(im, H, (300, 40)),
+                          cv2.warpPerspective(im, H, (300, 40)))
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (37, 53, 3)],
+                         ids=["gray", "bgr"])
+def test_write_png_round_trips(tmp_path, shape):
+    im = np.random.default_rng(3).integers(0, 256, shape).astype(np.uint8)
+    path = tmp_path / "out.png"
+    write_png(path, im)
+    flag = cv2.IMREAD_GRAYSCALE if len(shape) == 2 else cv2.IMREAD_COLOR
+    assert np.array_equal(cv2.imread(str(path), flag), im)
+    assert np.array_equal(read_png(path, gray=len(shape) == 2), im)
+    with pytest.raises(ValueError):
+        write_png(path, im.astype(np.float32))
+
+
+def test_imread_if_image_skips_other_files_without_cv2(monkeypatch,
+                                                       tmp_path):
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    np.save(tmp_path / "gt.npy", np.zeros(6))
+    (tmp_path / "README").write_text("frames")
+    write_png(tmp_path / "a.png", np.full((8, 8, 3), 7, np.uint8))
+    assert imread_if_image(tmp_path / "gt.npy") is None
+    assert imread_if_image(tmp_path / "README") is None
+    assert np.array_equal(imread_if_image(tmp_path / "a.png"),
+                          np.full((8, 8, 3), 7, np.uint8))
