@@ -11,6 +11,9 @@
 - `roofline_floor_s`, `speed_of_light`, `bound`: the least time an
   operation count and a byte count can take on one H100 SXM, and the share
   of it a measured time reaches.
+- `count_flops`: the operations of one call, counted by torch's
+  `FlopCounterMode` (run it on the plain path: the count of the
+  function's work, whatever kernel computes it on the card).
 - `time_ms`, `profile_call`, `median_wall_ms`: the card-only timers of
   `chip_smoke.py` (device time with a cold L2, device busy time and idle
   share of one call, host walls ended by a synchronize).
@@ -108,7 +111,9 @@ def _rebuild(tree: Any, leaves) -> Any:
     if isinstance(tree, dict):
         return {k: _rebuild(v, leaves) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, leaves) for v in tree)
+        items = [_rebuild(v, leaves) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
     return next(leaves)
 
 
@@ -117,11 +122,11 @@ _SAME_WIDTH_INT = {torch.float64: torch.int64, torch.float32: torch.int32,
 
 
 def _perturbed(args: Any, i: int, perturb_ints: bool = False) -> Any:
-    """`args` (tensors in nested tuples, lists and dicts) with iteration
-    `i`'s perturbation: every floating tensor moved by i % 16 units in the
-    last place (a relative change below 16 * eps of its dtype), and with
-    `perturb_ints` every integer tensor plus i % 2 (wrapping in its
-    dtype). Other leaves are passed as they are."""
+    """`args` (tensors in nested tuples, NamedTuples, lists and dicts)
+    with iteration `i`'s perturbation: every floating tensor moved by
+    i % 16 units in the last place (a relative change below 16 * eps of
+    its dtype), and with `perturb_ints` every integer tensor plus i % 2
+    (wrapping in its dtype). Other leaves are passed as they are."""
     def one(x):
         if not isinstance(x, torch.Tensor):
             return x
@@ -143,14 +148,19 @@ def scan_time(fn: Callable, *args, iters: int = 20, warmup: int = 1,
     the work of the one before).
 
     Iteration i (warmup included, counted across the whole run) moves
-    every floating tensor in `args` (nested tuples, lists and dicts too)
-    by i % 16 units in the last place and, with `perturb_ints=True`, adds
-    i % 2 to every integer tensor (turn it on when an integer tensor
-    carries the bulk data, such as uint8 frames; it changes the meaning of
-    index tensors). The perturbation runs inside the timed loop: one
-    elementwise pass over each perturbed input an iteration, part of the
-    time returned. The loop is lengthened (4x a step, up to `max_iters`)
-    until it lasts `min_window_s`. Timed as `time_fn` times."""
+    every floating tensor in `args` (nested tuples, NamedTuples, lists and
+    dicts too) by i % 16 units in the last place and, with
+    `perturb_ints=True`, adds i % 2 to every integer tensor (turn it on
+    when an integer tensor carries the bulk data, such as uint8 frames; it
+    changes the meaning of index tensors). The perturbation runs inside
+    the timed loop: one elementwise pass over each perturbed input an
+    iteration, part of the time returned. The loop is lengthened (4x a
+    step, up to `max_iters`) until it lasts `min_window_s`; with
+    `min_window_s=0` it runs exactly `warmup + iters` calls, as ranks that
+    meet in collectives must. Timed as `time_fn` times: on the card the
+    time between two CUDA events, so it includes every gap in which the
+    card waits for the host (an eager loop, not one compiled program).
+    """
     step = itertools.count()
 
     def run(_):
@@ -173,6 +183,22 @@ def roofline_floor_s(flops: float = 0.0, bytes_moved: float = 0.0,
     The caller counts both (each input read once, each output written
     once); there is no compiler cost analysis to ask."""
     return max(flops / PEAK_FLOPS[dtype], bytes_moved / PEAK_HBM_BYTES)
+
+
+def count_flops(fn: Callable, *args, **kwargs) -> float:
+    """Operations of one fn(*args, **kwargs) call, as
+    `torch.utils.flop_counter.FlopCounterMode` counts them: two a
+    multiply-add of every matrix product, batched product, convolution and
+    attention the call dispatches (a backward inside the call too);
+    elementwise work, reductions, sorts and gathers count nothing. The
+    call runs in full. Run it on the plain path (CPU tensors): the count
+    is the function's work, not a kernel's, so a floor taken from it
+    (`roofline_floor_s(count, dtype="bf16")`) holds whatever kernel later
+    computes the function on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    return float(counter.get_total_flops())
 
 
 def speed_of_light(seconds: float, flops: float = 0.0,

@@ -86,7 +86,13 @@ Run from the root of a checkout. In order, it
      the drawing), `apps/profile_extraction` in bfloat16 and float32 (no
      stage under its speed-of-light floor), `apps/minimal_example` and
      `examples/torch_01`, `_02`, `_05`, `_09`;
- 12. times each kernel against its plain version, its bound and, where one
+ 12. drives the benchmark programs (`bench_phase`) with cv2 unimportable:
+     A, `topk_exact`, C and D against their plain versions at the
+     benchmarks' shapes (B = 64 at 640x480 and 1024x768, K = 8192, 2048 +
+     2048 keypoints), then `apps/bench.py` at its defaults and
+     `apps/bench_suite.py` (A, B, C and D counted): every key of the JAX
+     benchmark's line present and no error, no time under its floor;
+ 13. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function (D's
      backward also at LighterGlue training's shape), and profiles one call
      of each matcher.
@@ -2331,6 +2337,295 @@ def apps_phase(root: Path, counters: dict) -> dict:
             "inliers": inliers, "tables": tables, "phase_s": phase_s}
 
 
+BENCH_B, BENCH_K = 64, 4096      # the headline program's batch and top_k
+BENCH_MNN_K, BENCH_LG_K = 8192, 2048
+
+
+def bench_phase(root: Path, counters: dict) -> dict:
+    """The port's benchmark programs on the card (`apps/bench.py`,
+    `apps/bench_suite.py`), with cv2 unimportable:
+
+    (a) before any time counts, the kernels against their plain versions
+        at the bench's shapes: A's candidates and selection at B = 64,
+        640x480 and 1024x768, K = 4096, on the bench's own maps (random
+        weights, uint8 noise, bfloat16 backbone) at its threshold 0.05
+        (no candidate: the empty histogram and selection) and at 0.012 (a
+        full selection), under torch.equal; `topk_exact` at B = 64 on the
+        semi-dense path's two scales of 640x480 (equal); C at K = 8192 on
+        the bench's normal descriptors (equal off float64 near-ties); D
+        inside `lighterglue_forward` at 2048 + 2048 (the bench's random
+        matcher and inputs) against the port's CPU path (matches equal
+        off near-ties, the log assignment within 1e-3 of its largest
+        value);
+    (b) `bench.main()` at its defaults and `bench_suite.main([])` (not
+        quick), each with the launches of A, B, C and D counted (each > 0;
+        the suite's semi-dense extraction also runs `topk_exact`);
+    (c) fails when the headline program exits 1, when a key of JAX's line
+        (`BENCH_r05.json`'s `parsed`) is missing or an error, when a
+        suite record is an error, or when any time is under its floor;
+    (d) prints the headline program's valid keypoints a frame and every
+        metric beside its floor and its share of the floor, and times the
+        kernels at the bench's shapes beside their plain versions and
+        bounds, and profiles one call of the headline program, of the
+        matcher and of a BA step (device busy time and idle share).
+        Returns the launches, the line, the records and the kernel
+        times."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch.apps import bench, bench_suite
+    from accelerated_features_tpu_torch.apps.eval_slam import device_label
+    from accelerated_features_tpu_torch.models.backbone import xfeat_forward
+    from accelerated_features_tpu_torch.models.lighterglue import \
+        lighterglue_forward
+    from accelerated_features_tpu_torch.ops.cuda.attention import (
+        attention_reference, flash_attention)
+    from accelerated_features_tpu_torch.ops.cuda.detect_fused import (
+        topk_exact, topk_keypoints_fused)
+    from accelerated_features_tpu_torch.ops.cuda.mnn import (
+        batch_mnn_match_fused, near_ties)
+    from accelerated_features_tpu_torch.ops.detect import (
+        _padded_top_k, heatmap_decode, score_map, topk_keypoints)
+    from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
+    from accelerated_features_tpu_torch.ops.resize import (preprocess_image,
+                                                           resize_bilinear,
+                                                           to_unit_float)
+    dev = torch.device("cuda")
+    label = device_label(dev)
+    t_phase = time.perf_counter()
+    errs, times = {}, {}
+
+    def bits(t_):
+        return t_.contiguous().view(torch.int32)
+
+    # ---- (a) the kernels at the bench's shapes ----------------------------
+    params = bench_suite.xfeat_params(dev)
+    rng = np.random.default_rng(0)
+    frames = {"640x480": rng.integers(0, 256, (BENCH_B, 480, 640, 3)),
+              "1024x768": rng.integers(0, 256, (BENCH_B, 768, 1024, 3))}
+    errs["detect_fused"] = 0.0
+    maps_a = {}
+    for res, fr in frames.items():
+        x = preprocess_image(to_unit_float(torch.from_numpy(
+            fr.astype(np.uint8)).to(dev)))[0]
+        _, logits, heat = xfeat_forward(params, x,
+                                        compute_dtype=torch.bfloat16)
+        kh = heatmap_decode(logits.float()).contiguous()
+        rl = heat[..., 0].float().contiguous()
+        maps_a[res] = (kh, rl)
+        for thr in (bench.THRESHOLD, 0.012):
+            kp_k, s_k = topk_keypoints_fused(kh, rl, BENCH_K, thr)
+            kp_p, s_p = topk_keypoints(score_map(kh, rl, thr), BENCH_K)
+            n_off = int((kp_k != kp_p).any(-1).sum()
+                        + (bits(s_k) != bits(s_p)).sum())
+            errs["detect_fused"] = max(errs["detect_fused"],
+                                       (s_k - s_p).abs().max().item())
+            n_valid = (s_k > 0).sum(1)
+            print(f"bench check detect_fused B={BENCH_B} {res} K={BENCH_K} "
+                  f"threshold {thr}: {n_off} slots differ, valid keypoints "
+                  f"a frame min {int(n_valid.min())} max "
+                  f"{int(n_valid.max())}")
+            check(n_off == 0, f"kernel A differs from plain at B={BENCH_B} "
+                              f"{res}, threshold {thr}")
+        del logits, heat, x
+    # topk_exact on the semi-dense path's cells: the two scales of the
+    # suite's float32 frames, K = 20% and 80% of 4096
+    xs = torch.from_numpy(rng.uniform(0, 1, (BENCH_B, 480, 640, 3)).astype(
+        np.float32)).to(dev)
+    errs["topk_exact"] = 0.0
+    cells = {}
+    for s_, k_ in ((0.6, int(BENCH_K * 0.2)), (1.3, int(BENCH_K * 0.8))):
+        xr = preprocess_image(resize_bilinear(
+            xs, (int(480 * s_), int(640 * s_))))[0]
+        rel_s = xfeat_forward(params, xr, compute_dtype=torch.bfloat16)[2] \
+            .float().reshape(BENCH_B, -1).contiguous()
+        k_ = min(k_, rel_s.shape[1])
+        cells[s_] = (rel_s, k_)
+        v_k, i_k = topk_exact(rel_s, k_)
+        v_p, i_p = _padded_top_k(rel_s, k_)
+        errs["topk_exact"] = max(errs["topk_exact"],
+                                 (v_k - v_p).abs().max().item())
+        print(f"bench check topk_exact B={BENCH_B} scale {s_} "
+              f"N={rel_s.shape[1]} K={k_}: {int((i_k != i_p).sum())} indices"
+              f" and {int((bits(v_k) != bits(v_p)).sum())} values differ")
+        check(torch.equal(i_k, i_p) and torch.equal(bits(v_k), bits(v_p)),
+              f"topk_exact differs from plain at B={BENCH_B}, scale {s_}")
+    del xs
+    # kernel C at K = 8192 on standard normal descriptors (the bench's)
+    d1 = torch.from_numpy(rng.normal(size=(1, BENCH_MNN_K, 64)).astype(
+        np.float32)).to(dev)
+    d2 = torch.from_numpy(rng.normal(size=(1, BENCH_MNN_K, 64)).astype(
+        np.float32)).to(dev)
+    i_k, mk = batch_mnn_match_fused(d1, d2)
+    i_p, mp = batch_mnn_match(d1, d2)
+    tie, smax = near_ties(d1, d2, eps=1e-6)
+    diff = (i_k != i_p) | (mk != mp)
+    picked = (d1.double() * torch.gather(
+        d2.double(), 1, i_k[..., None].expand(-1, -1, 64))).sum(-1)
+    errs["mnn"] = (smax - picked).max().item()
+    print(f"bench check mnn K1=K2={BENCH_MNN_K}: {int(diff.sum())} rows "
+          f"differ, {int((diff & ~tie).sum())} off near-ties, "
+          f"{int(mk.sum())} mutual; best similarity missed by at most "
+          f"{errs['mnn']:.3g}")
+    check(not bool((diff & ~tie).any()) and errs["mnn"] <= 1e-6,
+          f"kernel C differs from plain at K={BENCH_MNN_K}")
+    # kernel D inside the matcher at 2048 + 2048 against the CPU path
+    lparams, kpts, descs, size = bench_suite.lighterglue_inputs(
+        rng, BENCH_LG_K, dev)
+    before = flash_attention.launches
+    out_gpu = lighterglue_forward(lparams, kpts, kpts, descs, descs, size,
+                                  size)
+    n_attn = flash_attention.launches - before
+    cpu = [bench_suite.to_cpu(t_) for t_ in (lparams, kpts, descs, size)]
+    out_cpu = lighterglue_forward(cpu[0], cpu[1], cpu[1], cpu[2], cpu[2],
+                                  cpu[3], cpu[3])
+    la_g = out_gpu["log_assignment"][0, :-1, :-1].cpu()
+    la_c = out_cpu["log_assignment"][0, :-1, :-1]
+    errs["attention"] = (la_g - la_c).abs().max().item()
+    scale_la = la_c.abs().max().item()
+    row_top = torch.topk(la_c, 2, dim=1).values
+    col_top = torch.topk(la_c, 2, dim=0).values
+    best = la_c.argmax(dim=1)
+    tie = (row_top[:, 0] - row_top[:, 1] < 1e-4) \
+        | (col_top[0] - col_top[1] < 1e-4)[best]
+    diff = out_gpu["matches0"][0].cpu() != out_cpu["matches0"][0]
+    print(f"bench check lighterglue_forward {BENCH_LG_K} + {BENCH_LG_K}: "
+          f"{n_attn} attention launches, log assignment max abs err "
+          f"{errs['attention']:.3g} (largest {scale_la:.3g}), "
+          f"{int(diff.sum())} rows of matches0 differ, "
+          f"{int((diff & ~tie).sum())} off near-ties, "
+          f"{int((out_gpu['matches0'][0] >= 0).sum())} mutual")
+    check(n_attn == 24, f"kernel D launched {n_attn} times, not 24")
+    check(errs["attention"] <= 1e-3 * scale_la
+          and not bool((diff & ~tie).any()),
+          "lighterglue_forward on the card differs from the CPU path at "
+          f"{BENCH_LG_K} keypoints")
+
+    # ---- (b) the two programs, launches counted ----------------------------
+    launches = {}
+    cv2_module = sys.modules.get("cv2")
+    sys.modules["cv2"] = None   # `import cv2` raises during the runs
+    try:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main([])
+        wall_bench = time.perf_counter() - t0
+        launches["bench"] = {k: c.launches for k, c in counters.items()}
+        print(out.getvalue(), end="")
+        line = json.loads(out.getvalue().splitlines()[-1])
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        records = bench_suite.main([])
+        wall_suite = time.perf_counter() - t0
+        launches["bench_suite"] = {k: c.launches
+                                   for k, c in counters.items()}
+    finally:
+        if cv2_module is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = cv2_module
+    print(f"bench launches {launches['bench']} in {wall_bench:.1f} s; "
+          f"bench_suite launches {launches['bench_suite']} in "
+          f"{wall_suite:.1f} s on {label}")
+    for tag, kernels in (("bench", ("detect_fused", "bicubic", "mnn",
+                                    "attention")),
+                         ("bench_suite", ("detect_fused", "topk_exact",
+                                          "bicubic", "mnn", "attention"))):
+        check(all(launches[tag][k] > 0 for k in kernels),
+              f"{tag}: a kernel of {kernels} was not launched: "
+              f"{launches[tag]}")
+
+    # ---- (c) JAX's keys, no error, no time under its floor -----------------
+    parsed = json.loads((root / "BENCH_r05.json").read_text())["parsed"]
+    bad = [k for k in parsed if k not in line
+           or bench_suite.is_error(line[k])]
+    check(rc == 0 and not bad and "error" not in line,
+          f"bench: exit {rc}; keys of JAX's line missing or errors: {bad}")
+    under = [k for k, f in line["floor_ms"].items()
+             if line["call_ms"][k] < f]
+    under += [r["metric"] for r in records if "floor_ms" in r
+              and r["ms"] < r["floor_ms"]]
+    check(not under, f"times under their floors: {under}")
+    errors = [r["metric"] for r in records
+              if bench_suite.is_error(r["value"])]
+    check(not errors, f"bench_suite records that are errors: {errors}")
+
+    # ---- (d) the defect, each metric beside its floor -----------------------
+    print(f"bench headline: {line['valid_keypoints_per_frame']} valid "
+          f"keypoints a frame at threshold {bench.THRESHOLD} with random "
+          f"weights (the inherited defect: kernel A selects nothing, B "
+          f"samples padding)")
+    for k, f in line["floor_ms"].items():
+        ms = line["call_ms"][k]
+        name = line["metric"] if k == "value" else k
+        print(f"bench {name}: {line[k]} ({ms:.4f} ms a call), floor "
+              f"{f:.5f} ms, floor / time {f / ms:.4g} on {label}")
+    for r in records:
+        if "floor_ms" in r:
+            print(f"bench_suite {r['metric']}: {r['value']} {r['unit']} "
+                  f"({r['ms']:.4f} ms a call), floor {r['floor_ms']:.5f} "
+                  f"ms, floor / time {r['floor_ms'] / r['ms']:.4g} on "
+                  f"{label}")
+
+    # kernel times at the bench's shapes, beside the plain versions and
+    # the bounds (bytes and operations counted as in the main timings)
+    for res in frames:
+        kh, rl = maps_a[res]
+        for thr in (bench.THRESHOLD, 0.012):
+            times[f"detect_fused {res} B={BENCH_B} threshold {thr}"] = (
+                time_ms(lambda: topk_keypoints_fused(kh, rl, BENCH_K, thr),
+                        iters=20),
+                time_ms(lambda: topk_keypoints(score_map(kh, rl, thr),
+                                               BENCH_K), iters=5),
+                bound(4 * (kh.numel() + rl.numel())
+                      + 20 * BENCH_B * BENCH_K, 40 * kh.numel()))
+    rel_s, k_ = cells[1.3]
+    times[f"topk_exact B={BENCH_B} N={rel_s.shape[1]} K={k_}"] = (
+        time_ms(lambda: topk_exact(rel_s, k_), iters=20),
+        time_ms(lambda: _padded_top_k(rel_s, k_), iters=5),
+        bound(4 * rel_s.numel() + 12 * BENCH_B * k_, 4 * rel_s.numel()))
+    times[f"mnn K1=K2={BENCH_MNN_K}"] = (
+        time_ms(lambda: batch_mnn_match_fused(d1, d2), iters=20),
+        time_ms(lambda: batch_mnn_match(d1, d2), iters=5),
+        bound(4 * (d1.numel() + d2.numel()) + 11 * BENCH_MNN_K,
+              3 * 2.0 * BENCH_MNN_K * BENCH_MNN_K * 64, PEAK_TF32))
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((1, BENCH_LG_K, 96), generator=g).to(dev)
+               for _ in range(3))
+    sc = 96 ** -0.5
+    times[f"attention Nq=Nk={BENCH_LG_K} D=96"] = (
+        time_ms(lambda: flash_attention(q, k, v, None, sc), iters=20),
+        time_ms(lambda: attention_reference(q, k, v, None, sc), iters=5),
+        bound(4 * 4 * q.numel(), 3 * 4.0 * BENCH_LG_K * BENCH_LG_K * 96,
+              PEAK_TF32))
+    for name, (ms, pms, (bms, by)) in times.items():
+        print(f"time {name} (bench shape): kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {bms:.5f} ms ({by}) on {label}")
+    # where one call of the headline, the matcher and the BA step goes
+    imgs = torch.from_numpy(frames["640x480"].astype(np.uint8)).to(dev)
+    head = bench.sparse_program(BENCH_K)
+    with torch.inference_mode():
+        profile_call(f"bench headline B={BENCH_B} 640x480",
+                     lambda: head(params, imgs))
+    profile_call(f"bench lighterglue_forward {BENCH_LG_K} + {BENCH_LG_K}",
+                 lambda: lighterglue_forward(lparams, kpts, kpts, descs,
+                                             descs, size, size))
+    prob = bench_suite._synth_ba(50, 5000, 4, dev)
+    profile_call("bench ba_step c50/p5000",
+                 lambda: bench_suite.ba_step_call(prob))
+    phase_s = time.perf_counter() - t_phase
+    print(f"bench phase: {phase_s:.1f} s on {label}")
+    return {"launches": launches, "line": line, "records": records,
+            "errs": errs, "times": times, "phase_s": phase_s}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3055,6 +3350,9 @@ def main() -> int:
     # ---- the command-line apps and examples --------------------------------
     apps = apps_phase(root, counters)
 
+    # ---- the benchmark programs ---------------------------------------------
+    benched = bench_phase(root, counters)
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
@@ -3374,6 +3672,18 @@ def main() -> int:
                 key = "launches_apps_" + tag.replace(".py", "").replace(
                     "*", "_star").replace(" ", "_")
                 row[key] = counts[row["name"]]
+    for row in rows:  # the benchmark programs' launches, and each kernel's
+        name = row["name"]  # check and times at their shapes
+        for tag, counts in benched["launches"].items():
+            if counts.get(name):
+                row[f"launches_{tag}"] = counts[name]
+        if name in benched["errs"]:
+            row["max_abs_err_bench"] = benched["errs"][name]
+        for shape, (ms, pms, (bms, by)) in benched["times"].items():
+            if shape.split()[0] == name:
+                row.setdefault("times_bench", {})[shape] = {
+                    "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                    "bound_by": by}
     print(json.dumps({"kernels": rows}))
     print(device_label(dev))
     print(json.dumps({"ok": True, "device": {

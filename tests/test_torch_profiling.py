@@ -58,6 +58,28 @@ def test_scan_time_inputs_differ_between_iterations():
     assert not torch.equal(seen[0][2], seen[1][2])
 
 
+def test_scan_time_perturbs_namedtuples_and_keeps_their_type():
+    """A NamedTuple argument (a BA problem, an optimizer state) comes back
+    as its own type with its floating fields perturbed."""
+    from accelerated_features_tpu_torch.apps.bench_suite import _synth_ba
+    seen = []
+    p = _synth_ba(3, 8, 2)
+    profiling.scan_time(seen.append, p, iters=2, warmup=1, min_window_s=0.0)
+    assert len(seen) == 3 and all(type(q) is type(p) for q in seen)
+    assert not torch.equal(seen[1].cams, seen[2].cams)
+    assert all(torch.equal(q.obs_cam, p.obs_cam) for q in seen)
+
+
+def test_count_flops_counts_products_and_convolutions():
+    a, b = torch.rand(8, 16), torch.rand(16, 4)
+    w = torch.rand(6, 3, 3, 3)
+    assert profiling.count_flops(torch.matmul, a, b) == 2 * 8 * 16 * 4
+    assert profiling.count_flops(
+        torch.nn.functional.conv2d, torch.rand(1, 3, 10, 12), w,
+        padding=1) == 2 * 10 * 12 * 6 * 3 * 3 * 3
+    assert profiling.count_flops(torch.relu, a) == 0
+
+
 def test_scan_time_lengthens_a_short_window():
     n = []
     profiling.scan_time(lambda x: n.append(1), torch.ones(2), iters=2,
