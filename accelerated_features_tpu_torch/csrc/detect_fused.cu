@@ -655,15 +655,13 @@ static cudaError_t run_select(const float* vals, int B, int n, const int* hist0,
                                              sub, w2, idx, val, s);
 }
 
-// Candidates, their histogram and the exact top-k: xy (B,k,2) int64 and
-// scores (B,k) f32. best, sub: candidate scratch; hist: (B,2048) int32
-// scratch (zeroed here); gsel: (B,p2) uint64 scratch when p2 > 131072, else
-// null; p2: the power of two >= min(k, N).
-extern "C" int detect_topk(const float* heat, const float* rel, float* best,
-                           uint8_t* sub, int* hist, void* gsel,
-                           long long* xy, float* scores, int B, int H, int W,
-                           int h, int w, float thr, float sx, float sy, int k,
-                           int p2, void* stream) {
+// The candidate kernel alone: best (B,H/2*W/2) f32 and sub (B,H/2*W/2)
+// uint8, the best score of each 2x2 tile and its position in it; hist:
+// (B,2048) int32, the candidates' key histogram (zeroed here).
+extern "C" int detect_candidates(const float* heat, const float* rel,
+                                 float* best, uint8_t* sub, int* hist, int B,
+                                 int H, int W, int h, int w, float thr,
+                                 float sx, float sy, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
       cudaMemsetAsync(hist, 0, sizeof(int) * HIST_BINS * (size_t)B, s);
@@ -673,10 +671,23 @@ extern "C" int detect_topk(const float* heat, const float* rel, float* best,
             B);
   detect_candidates_kernel<<<grid, block, 0, s>>>(heat, rel, best, sub, hist,
                                                   H, W, h, w, thr, sx, sy);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Candidates, their histogram and the exact top-k: xy (B,k,2) int64 and
+// scores (B,k) f32. best, sub: candidate scratch; hist: (B,2048) int32
+// scratch (zeroed here); gsel: (B,p2) uint64 scratch when p2 > 131072, else
+// null; p2: the power of two >= min(k, N).
+extern "C" int detect_topk(const float* heat, const float* rel, float* best,
+                           uint8_t* sub, int* hist, void* gsel,
+                           long long* xy, float* scores, int B, int H, int W,
+                           int h, int w, float thr, float sx, float sy, int k,
+                           int p2, void* stream) {
+  int err = detect_candidates(heat, rel, best, sub, hist, B, H, W, h, w, thr,
+                              sx, sy, stream);
+  if (err) return err;
   return (int)run_select<true>(best, B, (H / 2) * (W / 2), hist, k, p2, gsel,
-                           sub, W / 2, xy, scores, s);
+                           sub, W / 2, xy, scores, (cudaStream_t)stream);
 }
 
 // Exact top-k of (B,n) f32 rows: idx (B,k) int64 and values (B,k) f32.

@@ -3,7 +3,9 @@
 // segment of one scan -> the quantized DCT coefficients of its blocks, in
 // natural (row-major) order. Everything after this step (dequantization,
 // the integer IDCT, chroma upsampling, colour conversion) runs vectorized
-// in numpy; only this bit-serial loop is native.
+// in numpy; only this bit-serial loop is native. And its inverse, the
+// baseline Huffman encoder of `utils/imageio.encode_jpeg`
+// (`jpeg_encode_scan`, libjpeg's `jchuff.c` without optimized tables).
 //
 // Built by g++ at first use (`utils/native.py`) and called through ctypes.
 // Follows ITU T.81 F.2.2: byte stuffing (FF 00), restart markers every
@@ -168,9 +170,167 @@ bool decode_block(BitReader& br, const Table& dc, const Table& ac,
   return true;
 }
 
+// Encoder side: the code and length of each symbol of a table (T.81 C.2,
+// libjpeg's jpeg_make_c_derived_tbl), and a bit writer that stuffs a zero
+// byte after every 0xFF and pads the last byte with ones.
+struct CodeTable {
+  uint32_t code[256];
+  uint8_t size[256];
+};
+
+bool build_codes(const uint8_t* bits, CodeTable* t) {
+  std::memset(t, 0, sizeof(CodeTable));
+  uint32_t code = 0;
+  int k = 0;
+  uint8_t sizes[257];
+  for (int len = 1; len <= 16; ++len)
+    for (int i = 0; i < bits[len - 1]; ++i) {
+      if (k >= 256) return false;
+      sizes[k++] = static_cast<uint8_t>(len);
+    }
+  int n = k;
+  k = 0;
+  int si = n ? sizes[0] : 0;
+  while (k < n) {
+    while (k < n && sizes[k] == si) {
+      t->size[k] = static_cast<uint8_t>(si);
+      t->code[k++] = code++;
+    }
+    if (code >= (1u << si)) return false;  // an all-ones code
+    code <<= 1;
+    ++si;
+  }
+  return true;
+}
+
+struct BitWriter {
+  uint8_t* out;
+  int64_t cap;
+  int64_t n = 0;
+  uint64_t acc = 0;  // right-aligned
+  int nbits = 0;
+  bool overflow = false;
+
+  void byte(uint8_t b) {
+    if (n + 2 > cap) {
+      overflow = true;
+      return;
+    }
+    out[n++] = b;
+    if (b == 0xFF) out[n++] = 0;
+  }
+  void put(uint32_t v, int size) {
+    acc = (acc << size) | (v & ((1u << size) - 1));
+    nbits += size;
+    while (nbits >= 8) {
+      nbits -= 8;
+      byte(static_cast<uint8_t>(acc >> nbits));
+    }
+  }
+  void flush() {
+    if (nbits) put(0x7F, 8 - nbits);
+  }
+};
+
+// One block: the DC difference's size category and bits, then the AC
+// terms in zigzag order as (zero run, size) symbols with ZRL for runs of
+// 16 and EOB after the last nonzero term (T.81 F.1.2). False for a term
+// wider than baseline allows (11 bits DC, 10 bits AC).
+bool encode_block(BitWriter& bw, const int16_t* block, int* pred,
+                  const CodeTable& dc, const CodeTable& ac,
+                  const uint8_t* dc_index, const uint8_t* ac_index) {
+  int temp = block[0] - *pred;
+  *pred = block[0];
+  int mag = temp < 0 ? -temp : temp;
+  int nbits = 0;
+  while (mag >> nbits) ++nbits;
+  if (nbits > 11) return false;
+  int s = dc_index[nbits];
+  bw.put(dc.code[s], dc.size[s]);
+  if (nbits) bw.put(static_cast<uint32_t>(temp < 0 ? temp - 1 : temp), nbits);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    temp = block[kNatural[k]];
+    if (temp == 0) {
+      ++run;
+      continue;
+    }
+    while (run > 15) {
+      s = ac_index[0xF0];
+      bw.put(ac.code[s], ac.size[s]);
+      run -= 16;
+    }
+    mag = temp < 0 ? -temp : temp;
+    nbits = 0;
+    while (mag >> nbits) ++nbits;
+    if (nbits > 10) return false;
+    s = ac_index[(run << 4) + nbits];
+    bw.put(ac.code[s], ac.size[s]);
+    bw.put(static_cast<uint32_t>(temp < 0 ? temp - 1 : temp), nbits);
+    run = 0;
+  }
+  if (run > 0) {
+    s = ac_index[0];
+    bw.put(ac.code[s], ac.size[s]);
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Encode one baseline scan into `out` (at most `cap` bytes). `comp` holds
+// 6 int32 per scan component: h, v (blocks of it in an MCU), blocks a row
+// of its coefficient array, its block offset into `coefs` (64 int16 a
+// block, natural order, every block an MCU covers present, padding blocks
+// included), DC table (0-1), AC table (0-1). `bits`/`vals`: 4 tables (DC
+// 0-1, AC 0-1) of 16 counts and 256 symbols. `mcux` x `mcuy` MCUs, no
+// restart interval. Returns the byte count, -1 if `cap` was too small, -2
+// for an invalid table, a symbol a table lacks or a term too wide.
+int64_t jpeg_encode_scan(int ncomp, const int32_t* comp, const int16_t* coefs,
+                         const uint8_t* bits, const uint8_t* vals, int mcux,
+                         int mcuy, uint8_t* out, int64_t cap) {
+  CodeTable tables[4];
+  uint8_t index[4][256];  // symbol -> its position in the table
+  for (int i = 0; i < 4; ++i) {
+    if (!build_codes(bits + 16 * i, &tables[i])) return -2;
+    std::memset(index[i], 0, 256);
+    int n = 0;
+    for (int len = 0; len < 16; ++len) n += bits[16 * i + len];
+    bool seen[256] = {false};
+    for (int k = 0; k < n; ++k) {
+      index[i][vals[256 * i + k]] = static_cast<uint8_t>(k);
+      seen[vals[256 * i + k]] = true;
+    }
+    // every symbol a block can need must have a code
+    for (int sym = 0; sym < 256; ++sym) {
+      bool needed = i < 2 ? sym <= 11 : ((sym & 15) <= 10 && (sym & 15) != 0) ||
+                                            sym == 0 || sym == 0xF0;
+      if (needed && !seen[sym]) return -2;
+    }
+  }
+  BitWriter bw;
+  bw.out = out;
+  bw.cap = cap;
+  int pred[4] = {0, 0, 0, 0};
+  for (int64_t my = 0; my < mcuy; ++my)
+    for (int64_t mx = 0; mx < mcux; ++mx)
+      for (int c = 0; c < ncomp; ++c) {
+        const int32_t* cp = comp + 6 * c;
+        int dc = cp[4] & 1, ac = 2 + (cp[5] & 1);
+        for (int y = 0; y < cp[1]; ++y)
+          for (int x = 0; x < cp[0]; ++x) {
+            int64_t by = my * cp[1] + y, bx = mx * cp[0] + x;
+            if (!encode_block(bw, coefs + 64 * (cp[3] + by * cp[2] + bx),
+                              &pred[c], tables[dc], tables[ac], index[dc],
+                              index[ac]))
+              return -2;
+          }
+      }
+  bw.flush();
+  return bw.overflow ? -1 : bw.n;
+}
 
 // Decode one scan. `comp` holds 8 int32 per scan component: h, v (its
 // sampling factors; ignored in a single-component scan), blocks a row of

@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..sfm.lie import hat, so3_exp, so3_log
+from ..sfm.lie import hat, outside_inference_mode, so3_exp, so3_log
 
 
 class RansacResult(NamedTuple):
@@ -108,7 +108,7 @@ def _refine_pose_sampson(wvec: torch.Tensor, t: torch.Tensor,
     p = torch.cat([wvec, t], -1)
     eye = damping * torch.eye(6, dtype=p.dtype, device=p.device)
     for _ in range(iters):
-        J = jacobian(p, x0, x1, sqrt_w)     # (P,N,6)
+        J = outside_inference_mode(jacobian, p, x0, x1, sqrt_w)  # (P,N,6)
         r = batched(p, x0, x1, sqrt_w)      # (P,N)
         Jt = J.transpose(-1, -2)
         g = (Jt @ r[..., None])[..., 0]

@@ -12,7 +12,11 @@ launches in `<wrapper>.launches`:
   `ops.detect.score_map` + `ops.detect.topk_keypoints`);
 - `topk_exact`: the selection kernel alone on any (B,N) float32 rows
   (plain version: `ops.detect._padded_top_k`); XFeat*'s semi-dense
-  extraction selects its cells with it.
+  extraction selects its cells with it;
+- `detect_candidates`: the candidate kernel alone (plain version:
+  `ops.detect.tile_candidates` of `score_map`), on no path of the
+  extractor: `tools/measure_select.py` times the candidates apart from
+  the selection with it.
 
 The selection's order is `lax.top_k`'s: value descending, ties by index
 ascending, -0.0 below +0.0; for k > N the tail is (-1.0, index 0). The
@@ -27,7 +31,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..detect import _padded_top_k, score_map, topk_keypoints
+from ..detect import (_padded_top_k, score_map, tile_candidates,
+                      topk_keypoints)
 from . import _build
 
 HIST_BINS = 2048        # csrc/detect_fused.cu: histogram of a key's top bits
@@ -105,6 +110,36 @@ def topk_keypoints_fused(kheat: torch.Tensor, reliability: torch.Tensor,
 topk_keypoints_fused.launches = 0
 
 
+def detect_candidates(kheat: torch.Tensor, reliability: torch.Tensor,
+                      threshold: float = 0.05
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The candidate kernel of `topk_keypoints_fused` alone: the best score
+    of each 2x2 tile (B,H/2,W/2) float32 and its position 2*dy+dx in it
+    (B,H/2,W/2) uint8, equal to the plain version under `torch.equal`.
+    One memset and one kernel on the card."""
+    if kheat.device.type == "cpu":
+        return tile_candidates(score_map(kheat, reliability, threshold))
+    _check_detect(kheat, reliability)
+    _build.refuse_grad("kernel A (detect_candidates)", kheat, reliability)
+    b, H, W = kheat.shape
+    _, h, w = reliability.shape
+    dev = kheat.device
+    best = torch.empty((b, H // 2, W // 2), dtype=torch.float32, device=dev)
+    sub = torch.empty((b, H // 2, W // 2), dtype=torch.uint8, device=dev)
+    hist = torch.empty((b, HIST_BINS), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.launch(_lib(), "detect_candidates", _build.ptr(kheat),
+                      _build.ptr(reliability), _build.ptr(best),
+                      _build.ptr(sub), _build.ptr(hist), b, H, W, h, w,
+                      ctypes.c_float(threshold),
+                      *_scales(kheat, reliability), _build.stream(kheat))
+    detect_candidates.launches += 1
+    return best, sub
+
+
+detect_candidates.launches = 0
+
+
 def topk_exact(values: torch.Tensor, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of each row of (B,N) float32 values -> ((B,k) values,
@@ -138,6 +173,7 @@ def _lib() -> ctypes.CDLL:
     fl, i, p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
     lib.detect_topk.argtypes = [p] * 8 + [i] * 5 + [fl] * 3 + [i] * 2 + [p]
     lib.topk_exact.argtypes = [p] * 4 + [i] * 4 + [p]
-    for fn in (lib.detect_topk, lib.topk_exact):
+    lib.detect_candidates.argtypes = [p] * 5 + [i] * 5 + [fl] * 3 + [p]
+    for fn in (lib.detect_topk, lib.topk_exact, lib.detect_candidates):
         fn.restype = ctypes.c_int
     return lib

@@ -3,6 +3,9 @@
 
 heatmap decode -> 5x5 NMS -> dense score map (nearest heatmap x bilinear
 reliability, -1 where invalid) -> one candidate per 2x2 tile -> top-k.
+`heatmap_decode_convt` and `heatmap_decode_planes` are two other
+formulations of `heatmap_decode`, equal bit for bit, that
+`tools/measure_select.py` times.
 `score_map` + `topk_keypoints` are the plain version of the fused detect
 kernel in `ops/cuda/detect_fused.py`, and `_padded_top_k` the plain
 version of its selection kernel (`topk_exact`), which orders keypoints the
@@ -16,6 +19,8 @@ from typing import Callable, Tuple
 import torch
 import torch.nn.functional as F
 
+from .precision import full_fp32_convs
+
 
 def heatmap_decode(logits: torch.Tensor,
                    softmax_temp: float = 1.0) -> torch.Tensor:
@@ -25,6 +30,49 @@ def heatmap_decode(logits: torch.Tensor,
     scores = torch.softmax(logits * softmax_temp, dim=-1)[..., :64]
     scores = scores.reshape(b, h, w, 8, 8).permute(0, 1, 3, 2, 4)
     return scores.reshape(b, h * 8, w * 8)
+
+
+def heatmap_decode_convt(logits: torch.Tensor,
+                         softmax_temp: float = 1.0) -> torch.Tensor:
+    """`heatmap_decode` with the pixel shuffle as a stride-8 transposed
+    convolution by a 0/1 scatter kernel (weight[c, 0, dy, dx] = 1 where
+    c = 8*dy+dx): each output pixel gets one product by 1 and 63 by 0, in
+    full float32 (no TF32 on the card), so the result is bit for bit the
+    reshape form's."""
+    b, h, w, _ = logits.shape
+    scores = torch.softmax(logits * softmax_temp, dim=-1)[..., :64]
+    k = torch.eye(64, dtype=scores.dtype, device=scores.device)
+    with full_fp32_convs():
+        out = F.conv_transpose2d(scores.permute(0, 3, 1, 2),
+                                 k.reshape(64, 1, 8, 8), stride=8)
+    return out[:, 0]
+
+
+def heatmap_decode_planes(logits: torch.Tensor,
+                          softmax_temp: float = 1.0) -> torch.Tensor:
+    """`heatmap_decode` as 8 row planes stacked: plane dy is bins 8*dy..
+    8*dy+7 of every cell side by side, so only the dy axis moves."""
+    b, h, w, _ = logits.shape
+    scores = torch.softmax(logits * softmax_temp, dim=-1)[..., :64]
+    hd = scores.reshape(b, h, w, 8, 8)
+    planes = [hd[:, :, :, dy, :].reshape(b, h, w * 8) for dy in range(8)]
+    return torch.stack(planes, 2).reshape(b, h * 8, w * 8)
+
+
+DECODE_VARIANTS = {"reshape": heatmap_decode, "convt": heatmap_decode_convt,
+                   "planes": heatmap_decode_planes}
+
+
+def heatmap_decode_auto(logits: torch.Tensor, softmax_temp: float = 1.0,
+                        impl: str = "reshape") -> torch.Tensor:
+    """The decode formulation `impl` ("reshape", "convt" or "planes"); all
+    three give the same bits. The JAX package reads the choice from the
+    XFEAT_DECODE environment variable; here it is an argument, and any
+    other value raises ValueError naming the valid ones."""
+    if impl not in DECODE_VARIANTS:
+        raise ValueError(f"impl={impl!r} is not a decode variant; expected "
+                         f"one of {sorted(DECODE_VARIANTS)}")
+    return DECODE_VARIANTS[impl](logits, softmax_temp)
 
 
 def local_max_mask(heat: torch.Tensor, threshold: float = 0.05,

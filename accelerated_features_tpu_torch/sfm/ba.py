@@ -36,7 +36,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..ops.precision import full_fp32_matmuls
-from .lie import rotate
+from .lie import outside_inference_mode, rotate
 
 Reduce = Callable[[torch.Tensor], torch.Tensor]
 
@@ -123,12 +123,18 @@ def _residuals(p: BAProblem) -> torch.Tensor:
     return torch.where(p.obs_mask[:, None], r, 0.0)
 
 
+def _projection_jacobians(cams_g: torch.Tensor, pts_g: torch.Tensor,
+                          K: torch.Tensor):
+    return vmap(jacfwd(lambda c, x: project(c, x, K),
+                       argnums=(0, 1)))(cams_g, pts_g)
+
+
 def residuals_and_jacobians(p: BAProblem):
-    """Per-observation residual (N,2), J_cam (N,2,6), J_pt (N,2,3)."""
-    cams_g = p.cams[p.obs_cam]
-    pts_g = p.points[p.obs_pt]
-    Jc, Jp = vmap(jacfwd(lambda c, x: project(c, x, p.K),
-                         argnums=(0, 1)))(cams_g, pts_g)
+    """Per-observation residual (N,2), J_cam (N,2,6), J_pt (N,2,3); inside
+    `torch.inference_mode()` too (`lie.outside_inference_mode`)."""
+    Jc, Jp = outside_inference_mode(_projection_jacobians,
+                                    p.cams[p.obs_cam], p.points[p.obs_pt],
+                                    p.K)
     m = p.obs_mask[:, None, None]
     Jc = torch.where(m, Jc, 0.0)
     Jp = torch.where(m, Jp, 0.0)

@@ -1,6 +1,7 @@
 """SO(3)/SE(3) utilities in the angle-axis parameterization (counterpart
 of the JAX package's `sfm/lie.py`). Every function broadcasts over leading
-dimensions."""
+dimensions, and `outside_inference_mode`, through which the BA, the pose
+graph and the RANSAC take their `torch.func` Jacobians."""
 
 from __future__ import annotations
 
@@ -82,3 +83,22 @@ def se3_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     R = so3_exp(a[..., :3]) @ so3_exp(b[..., :3])
     t = rotate(a[..., :3], b[..., 3:]) + a[..., 3:]
     return torch.cat([so3_log(R), t], -1)
+
+
+def outside_inference_mode(fn, *args):
+    """fn(*args) for a function that takes `torch.func` forward-mode
+    Jacobians (`jacfwd`, under `vmap` or not). Some torch builds (the CUDA
+    build of the card's machine) refuse those inside
+    `torch.inference_mode()` ("Batching rule not implemented for
+    aten::_make_dual"), so inside it, or given inference tensors, fn runs
+    with inference mode off on ordinary clones of them. Elsewhere fn is
+    called as it is: the same operations on the same values, so the
+    results are equal bit for bit either way. Every tensor fn reads must
+    be among `args`."""
+    inference = [isinstance(a, torch.Tensor) and a.is_inference()
+                 for a in args]
+    if not torch.is_inference_mode_enabled() and not any(inference):
+        return fn(*args)
+    with torch.inference_mode(False):
+        return fn(*(a.clone() if inf else a
+                    for a, inf in zip(args, inference)))

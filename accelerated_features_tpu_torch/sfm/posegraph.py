@@ -18,7 +18,8 @@ import torch
 from torch.func import jacfwd
 
 from ..ops.precision import full_fp32_matmuls
-from .lie import se3_compose, se3_inverse, so3_exp
+from .lie import (outside_inference_mode, se3_compose, se3_inverse,
+                  so3_exp)
 
 
 @dataclasses.dataclass
@@ -94,7 +95,7 @@ def optimize_pose_graph(graph: PoseGraph, iters: int = 20,
         r = edge_residual(poses[ei], poses[ej], meas)
         return 1.0 / (1.0 + (r ** 2).sum(-1) / (robust_c ** 2))
 
-    def residual_vec(flat, w_eff):
+    def residual_vec(flat, w_eff, ei, ej, meas):
         p = flat.reshape(n, 6)
         r = edge_residual(p[ei], p[ej], meas)
         return (w_eff.sqrt()[:, None] * r).reshape(-1)
@@ -109,8 +110,9 @@ def optimize_pose_graph(graph: PoseGraph, iters: int = 20,
         for _ in range(iters):
             flat = poses.reshape(-1)
             w_eff = wts * robust_w(poses)   # IRLS: frozen for this step
-            J = jacfwd(residual_vec)(flat, w_eff)
-            r = residual_vec(flat, w_eff)
+            J = outside_inference_mode(jacfwd(residual_vec), flat, w_eff,
+                                       ei, ej, meas)
+            r = residual_vec(flat, w_eff, ei, ej, meas)
             H = J.T @ J + lam * eye
             g = J.T @ r
             if frozen is not None:

@@ -15,18 +15,19 @@ The layout is MegaDepth's, as `train/megadepth.py` reads it:
 
 Scenes are rendered by `train/render.render_scene_views` and their pairs
 indexed by `train/render.pair_overlap`, as `apps/render_depth_dataset.py`
-does. Scene 0 stores JPEG images (`cv2.imwrite`, quality 95, as MegaDepth
-stores its photographs) and gzip-chunked depth maps (h5py's
-`compression="gzip"`, as the renderer writes them); scene 1 stores color
-PNGs (as the renderer writes them) and contiguous depth maps (h5py's
-default). Every depth map has an `.npy` twin, the reference a reader
-without h5py is held to. `--full_size_out` also writes one depth map at
-the training size, 800x608, gzip-chunked as the renderer writes it
-(`depth.h5`, and its twin `depth.npy`): the map whose host read time
-the reader is judged by.
+does. Scene 0 stores JPEG images (`utils/imageio.write_jpeg`, quality 95,
+the bytes `cv2.imwrite` writes, as MegaDepth stores its photographs) and
+gzip-chunked depth maps (`utils/hdf5.write_dataset(compression="gzip")`,
+h5py's chunks and level, as the renderer writes them); scene 1 stores
+color PNGs (`write_png`, as the renderer writes them) and contiguous depth
+maps (h5py's default layout). Every depth map has an `.npy` twin, the
+reference a reader without h5py is held to. `--full_size_out` also
+writes one depth map at the training size, 800x608, gzip-chunked as the
+renderer writes it (`depth.h5`, and its twin `depth.npy`): the map whose
+host read time the reader is judged by.
 
-Writing needs cv2 and h5py; nothing on the training path imports this
-module.
+Writing needs neither cv2 nor h5py; nothing on the training path imports
+this module.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ import os
 import numpy as np
 
 from ..train.render import pair_overlap, render_scene_views
-from ..utils.imageio import load_textures
+from ..utils.hdf5 import write_dataset
+from ..utils.imageio import load_textures, write_jpeg, write_png
 
 INDEX_DIR = os.path.join("train_data", "megadepth_indices",
                          "scene_info_0.1_0.7")
@@ -48,9 +50,6 @@ def write_fixture(out: str, textures: str, scenes: int = 2, views: int = 3,
                   min_overlap: float = 0.3) -> int:
     """Render and write the dataset; returns the number of indexed
     pairs."""
-    import cv2
-    import h5py
-
     w, h = res
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(out, INDEX_DIR), exist_ok=True)
@@ -69,16 +68,10 @@ def write_fixture(out: str, textures: str, scenes: int = 2, views: int = 3,
             ext = "jpg" if jpeg else "png"
             ip = os.path.join(rel, "imgs", f"view_{vi}.{ext}")
             dp = os.path.join(rel, "depths", f"view_{vi}.h5")
-            params = [cv2.IMWRITE_JPEG_QUALITY, 95] if jpeg else []
-            if not cv2.imwrite(os.path.join(out, "MegaDepth_v1", ip), img,
-                               params):
-                raise OSError(f"cv2 could not write {ip}")
-            with h5py.File(os.path.join(out, "MegaDepth_v1", dp), "w") as f:
-                if jpeg:
-                    f.create_dataset("depth", data=depth,
-                                     compression="gzip")
-                else:
-                    f.create_dataset("depth", data=depth)
+            (write_jpeg if jpeg else write_png)(
+                os.path.join(out, "MegaDepth_v1", ip), img)
+            write_dataset(os.path.join(out, "MegaDepth_v1", dp), depth,
+                          compression="gzip" if jpeg else None)
             np.save(os.path.join(out, "MegaDepth_v1",
                                  dp[:-len(".h5")] + ".npy"), depth)
             img_paths.append(ip)
@@ -104,15 +97,12 @@ def write_full_size_map(out: str, textures: str, res=(800, 608),
                         seed: int = 6, n_textures: int = 12) -> None:
     """One view of a rendered scene at `res`: its depth as `depth.h5`
     (gzip-chunked) and `depth.npy`."""
-    import h5py
-
     w, h = res
     rng = np.random.default_rng(seed)
     texs = load_textures(textures, n_textures, rng)
     depth = render_scene_views(rng, texs, 1, w, h)["depths"][0]
     os.makedirs(out, exist_ok=True)
-    with h5py.File(os.path.join(out, "depth.h5"), "w") as f:
-        f.create_dataset("depth", data=depth, compression="gzip")
+    write_dataset(os.path.join(out, "depth.h5"), depth, compression="gzip")
     np.save(os.path.join(out, "depth.npy"), depth)
 
 

@@ -23,16 +23,27 @@ of the format that h5py writes with its default `libver="earliest"`:
 Any other superblock, header, datatype, layout or filter raises
 `ValueError` naming what it met. Nothing falls back to h5py.
 
+`write_dataset(path, array, name="depth", compression=None)` writes the
+other direction: a file of one float32 or float64 dataset that h5py and
+`read_dataset` read back equal, laid out as h5py lays out
+`h5py.File(path, "w").create_dataset(name, data=array,
+compression=compression)`: superblock 0, a root group by symbol table, and
+contiguous storage, or with `compression="gzip"` deflate at level 4 in
+chunks of h5py's `guess_chunk` shape, no shuffle. The bytes need not be
+h5py's.
+
 Format reference: the HDF5 File Format Specification, version 2 (which
 documents superblock 0, object header 1 and B-tree 1).
 """
 
 from __future__ import annotations
 
+import math
+import os
 import struct
 import zlib
 from pathlib import Path
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -327,4 +338,194 @@ def read_dataset(source: Union[str, Path, bytes], name: str = "depth"
     return _File(data).dataset(name)
 
 
-__all__ = ["read_dataset"]
+# ---- the writer -------------------------------------------------------------
+GZIP_LEVEL = 4                   # h5py's compression_opts for "gzip"
+_GROUP_LEAF_K, _GROUP_NODE_K = 4, 16
+_CHUNK_K = 32                    # superblock 0 keeps the default chunk K
+
+
+def guess_chunk(shape: Tuple[int, ...], itemsize: int) -> Tuple[int, ...]:
+    """h5py's `filters.guess_chunk` for a dataset of fixed `shape`: halve
+    the axes in turn until a chunk is under PyTables' target size (16 KiB
+    x 2^log10(MiB of the dataset), within 8 KiB..1 MiB) or within half of
+    it."""
+    chunks = [float(x) for x in shape]
+    dset = math.prod(chunks) * itemsize
+    target = min(max(16 * 1024 * 2 ** math.log10(dset / (1024.0 * 1024)),
+                     8 * 1024), 1024 * 1024)
+    idx = 0
+    while True:
+        nbytes = math.prod(chunks) * itemsize
+        if (nbytes < target or abs(nbytes - target) / target < 0.5) \
+                and nbytes < 1024 * 1024:
+            break
+        if math.prod(chunks) == 1:
+            break
+        chunks[idx % len(chunks)] = math.ceil(chunks[idx % len(chunks)] / 2.0)
+        idx += 1
+    return tuple(int(x) for x in chunks)
+
+
+def _message(kind: int, body: bytes, flags: int = 0) -> bytes:
+    body += b"\0" * (-len(body) % 8)
+    return struct.pack("<HHB3x", kind, len(body), flags) + body
+
+
+def _object_header(messages: List[bytes]) -> bytes:
+    body = b"".join(messages)
+    return struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body
+
+
+def _btree_node(node_type: int, level: int, keys: List[bytes],
+                children: List[int], left: int, right: int, k: int) -> bytes:
+    """A version 1 B-tree node of `len(children)` entries, allocated at its
+    full size (2k children) as readers read it."""
+    out = [b"TREE", struct.pack("<BBHQQ", node_type, level, len(children),
+                                left, right)]
+    for key, child in zip(keys, children):
+        out += [key, struct.pack("<Q", child)]
+    out.append(keys[len(children)])
+    size = 24 + 2 * k * 8 + (2 * k + 1) * len(keys[0])
+    node = b"".join(out)
+    return node + b"\0" * (size - len(node))
+
+
+def write_dataset(path: Union[str, Path], array: np.ndarray,
+                  name: str = "depth", compression: Optional[str] = None
+                  ) -> None:
+    """Write `array` (float32 or float64, any rank >= 1) as the dataset
+    `name` of a new HDF5 file at `path`, contiguous or, with
+    `compression="gzip"`, deflate-compressed (level 4) in chunks of
+    `guess_chunk`'s shape, as h5py's `create_dataset(name, data=array,
+    compression=compression)` stores it. h5py and `read_dataset` read it
+    back equal."""
+    a = np.asarray(array)
+    if a.dtype not in (np.float32, np.float64) or a.ndim == 0 \
+            or 0 in a.shape:
+        raise ValueError(f"write_dataset takes a non-empty float32 or "
+                         f"float64 array of rank >= 1, not {a.shape} "
+                         f"{a.dtype}")
+    if compression not in (None, "gzip"):
+        raise ValueError(f"compression={compression!r}; None or 'gzip'")
+    if not name or "/" in name or len(name) > 255:
+        raise ValueError(f"dataset name {name!r}: one level, no '/'")
+    a = np.ascontiguousarray(a, a.dtype.newbyteorder("<"))
+    item = a.dtype.itemsize
+    rank = a.ndim
+
+    # fixed layout: superblock, root header, group B-tree, local heap,
+    # dataset header, symbol node, then the data (and chunk B-tree)
+    root_at = 96
+    gtree_at = root_at + 16 + 8 + 16
+    gtree_size = 24 + 2 * _GROUP_NODE_K * 8 + (2 * _GROUP_NODE_K + 1) * 8
+    heap_at = gtree_at + gtree_size
+    name_b = name.encode() + b"\0"
+    name_b += b"\0" * (-len(name_b) % 8)
+    seg = b"\0" * 8 + name_b
+    free = max(88 - len(seg), 16)        # one free block, as h5py leaves
+    seg += struct.pack("<QQ", 1, free) + b"\0" * (free - 16)
+    seg_at = heap_at + 32
+
+    space = struct.pack("<BBBB4x", 1, rank, 1, 0) + struct.pack(
+        f"<{2 * rank}Q", *a.shape, *a.shape)
+    bits = 32 if item == 4 else 64
+    exp_at, exp_bits, mant, bias = (23, 8, 23, 127) if item == 4 else \
+        (52, 11, 52, 1023)
+    dtype_b = struct.pack("<BBBBIHHBBBBI", 0x11, 0x20, bits - 1, 0, item, 0,
+                          bits, exp_at, exp_bits, 0, mant, bias)
+    chunked = compression == "gzip"
+    fill = struct.pack("<BBBBI", 2, 3 if chunked else 2, 2, 1, 0)
+    # the layout's addresses are patched in below: its size is fixed
+    if chunked:
+        chunk = guess_chunk(a.shape, item)
+        pipeline = struct.pack("<BB6xHHHH", 1, 1, 1, 8, 1, 1) + \
+            b"deflate\0" + struct.pack("<II", GZIP_LEVEL, 0)
+        layout_len = 3 + 8 + 4 * (rank + 1)
+    else:
+        layout_len = 2 + 16
+    msgs = lambda layout: [                                   # noqa: E731
+        _message(0x01, space), _message(0x03, dtype_b, 1),
+        _message(0x05, fill, 1)] + (
+        [_message(0x0B, pipeline, 1)] if chunked else []) + [
+        _message(0x08, layout)]
+    ds_at = seg_at + len(seg)
+    ds_len = len(_object_header(msgs(b"\0" * layout_len)))
+    snod_at = ds_at + ds_len
+    data_at = snod_at + 8 + 2 * _GROUP_LEAF_K * 40
+
+    tail = []
+    if chunked:
+        grid = [-(-n // c) for n, c in zip(a.shape, chunk)]
+        keys, addrs = [], []
+        at = data_at
+        for idx in np.ndindex(*grid):
+            lo = [i * c for i, c in zip(idx, chunk)]
+            block = np.zeros(chunk, a.dtype)
+            src = a[tuple(slice(o, o + c) for o, c in zip(lo, chunk))]
+            block[tuple(slice(0, n) for n in src.shape)] = src
+            raw = zlib.compress(block.tobytes(), GZIP_LEVEL)
+            keys.append(struct.pack(f"<II{rank + 1}Q", len(raw), 0, *lo, 0))
+            addrs.append(at)
+            tail.append(raw)
+            at += len(raw)
+        # the key past the last chunk: one chunk on along every axis
+        end_key = struct.pack(f"<II{rank + 1}Q", 0, 0,
+                              *[g * c for g, c in zip(grid, chunk)], item)
+        key_len = len(end_key)
+        node_size = 24 + 2 * _CHUNK_K * 8 + (2 * _CHUNK_K + 1) * key_len
+        level = 0
+        while True:
+            groups = [list(range(i, min(i + 2 * _CHUNK_K, len(keys))))
+                      for i in range(0, len(keys), 2 * _CHUNK_K)]
+            firsts = [at + j * node_size for j in range(len(groups))]
+            for j, g in enumerate(groups):
+                nk = [keys[i] for i in g]
+                nk.append(keys[g[-1] + 1] if g[-1] + 1 < len(keys)
+                          else end_key)
+                tail.append(_btree_node(
+                    1, level, nk, [addrs[i] for i in g],
+                    firsts[j - 1] if j else UNDEFINED,
+                    firsts[j + 1] if j + 1 < len(groups) else UNDEFINED,
+                    _CHUNK_K))
+            at += len(groups) * node_size
+            keys = [keys[g[0]] for g in groups]
+            addrs = firsts
+            level += 1
+            if len(groups) == 1:
+                break
+        layout = struct.pack(f"<BBBQ{rank + 1}I", 3, 2, rank + 1, addrs[0],
+                             *chunk, item)
+        eof = at
+    else:
+        raw = a.tobytes()
+        tail.append(raw)
+        layout = struct.pack("<BBQQ", 3, 1, data_at, len(raw))
+        eof = data_at + len(raw)
+
+    head = bytearray()
+    head += SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+    head += struct.pack("<HHI", _GROUP_LEAF_K, _GROUP_NODE_K, 0)
+    head += struct.pack("<QQQQ", 0, UNDEFINED, eof, UNDEFINED)
+    head += struct.pack("<QQII", 0, root_at, 1, 0) + struct.pack(
+        "<QQ", gtree_at, heap_at)
+    head += _object_header([_message(0x11, struct.pack("<QQ", gtree_at,
+                                                       heap_at))])
+    head += _btree_node(0, 0, [struct.pack("<Q", 0), struct.pack("<Q", 8)],
+                        [snod_at], UNDEFINED, UNDEFINED, _GROUP_NODE_K)
+    head += b"HEAP" + struct.pack("<B3xQQQ", 0, len(seg), 8 + len(name_b),
+                                  seg_at) + seg
+    head += _object_header(msgs(layout))
+    head += b"SNOD" + struct.pack("<BxH", 1, 1) + struct.pack(
+        "<QQII16x", 8, ds_at, 0, 0)
+    head += b"\0" * (data_at - len(head))
+    if len(head) != data_at:
+        raise AssertionError("HDF5 writer layout is off")
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(head)
+        for part in tail:
+            f.write(part)
+    os.replace(tmp, path)
+
+
+__all__ = ["guess_chunk", "read_dataset", "write_dataset"]

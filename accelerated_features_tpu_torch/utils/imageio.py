@@ -28,11 +28,17 @@
   fixed-point for uint8, in numpy.
 * `write_png`: 8-bit gray or BGR arrays as PNG files (filter 0, zlib),
   which `read_png` and `cv2.imread` read back equal.
+* `encode_jpeg` / `write_jpeg`: gray or BGR arrays as the JPEG bytes
+  `cv2.imencode(".jpg", ...)` / `cv2.imwrite` give, byte for byte
+  (baseline, 4:2:0, the standard Huffman tables; quality 95 by default);
+  the Huffman coding is C++ beside the decoder's.
 * `warp_perspective`: `cv2.warpPerspective(im, H, dsize)` with its
   defaults (`INTER_LINEAR`, `BORDER_CONSTANT` 0), equal to cv2's float32
   kernels (OpenCV >= 4.11) pixel for pixel.
 * `load_textures`: the texture-crop loader of the rendered datasets
-  (counterpart of `apps/render_depth_dataset.load_textures`).
+  (counterpart of `apps/render_depth_dataset.load_textures`; recursive
+  over PNGs by default, the JAX loader's flat `*.png` + `*.jpg` with
+  `recursive=False`).
 """
 
 from __future__ import annotations
@@ -211,6 +217,10 @@ def _entropy_lib() -> ctypes.CDLL:
                 p, ctypes.c_int64, ctypes.c_int, p, p, p, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, p]
             lib.jpeg_decode_scan.restype = ctypes.c_int
+            lib.jpeg_encode_scan.argtypes = [
+                ctypes.c_int, p, p, p, p, ctypes.c_int, ctypes.c_int, p,
+                ctypes.c_int64]
+            lib.jpeg_encode_scan.restype = ctypes.c_int64
             _ENTROPY_LIB = lib
         return _ENTROPY_LIB
 
@@ -551,6 +561,240 @@ def read_jpeg(path: Union[str, Path], gray: bool = False) -> np.ndarray:
         raise ValueError(f"{path}: {e}") from None
 
 
+# ---- the JPEG writer -------------------------------------------------------
+# T.81 Annex K's tables, as libjpeg's jcparam.c holds them: quantization in
+# natural order, Huffman as 16 code counts then the symbols
+_STD_QUANT = (np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+              24, 26, 56, 99, 99, 99, 99, 99, 47, 66] + [99] * 38))
+_STD_HUFFMAN = {  # (class, index) -> (bits, vals); class 0 DC, 1 AC
+    (0, 0): (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]),
+             bytes(range(12))),
+    (0, 1): (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]),
+             bytes(range(12))),
+    (1, 0): (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]),
+             bytes.fromhex(
+                 "01020300041105122131410613516107227114328191a1082342b1c1"
+                 "1552d1f02433627282090a161718191a25262728292a343536373839"
+                 "3a434445464748494a535455565758595a636465666768696a737475"
+                 "767778797a838485868788898a92939495969798999aa2a3a4a5a6a7"
+                 "a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8"
+                 "d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    (1, 1): (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]),
+             bytes.fromhex(
+                 "000102031104052131061241510761711322328108144291a1b1c109"
+                 "233352f0156272d10a162434e125f11718191a262728292a35363738"
+                 "393a434445464748494a535455565758595a636465666768696a7374"
+                 "75767778797a82838485868788898a92939495969798999aa2a3a4a5"
+                 "a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6"
+                 "d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")),
+}
+
+
+def _quant_table(which: int, quality: int) -> np.ndarray:
+    """libjpeg's `jpeg_set_quality(cinfo, quality, TRUE)` table `which`
+    (0 luminance, 1 chrominance), natural order."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((_STD_QUANT[which] * scale + 50) // 100, 1, 255)
+
+
+def _reciprocals(divisors: np.ndarray):
+    """libjpeg-turbo's `compute_reciprocal` of each divisor: (reciprocal,
+    correction, shift) with which `quantize` divides by multiplying."""
+    out = []
+    for d in divisors.tolist():
+        b = d.bit_length() - 1
+        r = 16 + b
+        fq, fr = divmod(1 << r, d)
+        c = d // 2
+        if fr == 0:            # a power of two
+            fq >>= 1
+            r -= 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        out.append((fq, c, r))
+    return tuple(np.array(x, np.int64) for x in zip(*out))
+
+
+def _fdct_1d(d):
+    """One 8-point pass of `jpeg_fdct_islow` over int64 arrays d[0..7];
+    returns the outputs 0..7 before their scaling (0 and 4 still to be
+    shifted, the rest to be descaled by the caller)."""
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    z1 = (tmp12 + tmp13) * _F0541
+    even = (tmp10 + tmp11, z1 + tmp13 * _F0765, tmp10 - tmp11,
+            z1 - tmp12 * _F1847)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * _F1175
+    tmp4, tmp5 = tmp4 * _F0298, tmp5 * _F2053
+    tmp6, tmp7 = tmp6 * _F3072, tmp7 * _F1501
+    z1, z2 = z1 * -_F0899, z2 * -_F2562
+    z3, z4 = z3 * -_F1961 + z5, z4 * -_F0390 + z5
+    return (even[0], tmp7 + z1 + z4, even[1], tmp6 + z2 + z3, even[2],
+            tmp5 + z2 + z4, even[3], tmp4 + z1 + z3)
+
+
+def _fdct_quantize(plane: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """A padded (8 bh, 8 bw) uint8 plane -> its (bh, bw, 64) quantized
+    coefficients in natural order, bit for bit libjpeg-turbo's
+    `jpeg_fdct_islow` and `quantize` (divisors 8 q, by reciprocals)."""
+    bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+    b = plane.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+    b = b.astype(np.int64) - 128
+    rows = _fdct_1d([b[:, :, k] for k in range(8)])   # each (N, 8 rows)
+    ws = np.stack([x << _PASS1_BITS if k % 4 == 0 else
+                   _descale(x, _CONST_BITS - _PASS1_BITS)
+                   for k, x in enumerate(rows)], 2)
+    cols = _fdct_1d([ws[:, k] for k in range(8)])     # each (N, 8 cols)
+    coef = np.stack([_descale(x, _PASS1_BITS) if k % 4 == 0 else
+                     _descale(x, _CONST_BITS + _PASS1_BITS)
+                     for k, x in enumerate(cols)], 1).reshape(-1, 64)
+    fq, c, r = _reciprocals(quant.astype(np.int64) << 3)
+    q = ((np.abs(coef) + c) * fq) >> r
+    return np.where(coef < 0, -q, q).astype(np.int16).reshape(bh, bw, 64)
+
+
+def _rgb_ycc_tables():
+    i = np.arange(256, dtype=np.int64)
+    fix = lambda v: int(v * 65536 + 0.5)   # noqa: E731 (jccolor.c FIX)
+    half, offset = 1 << 15, 128 << 16
+    return {"y": (fix(0.29900) * i, fix(0.58700) * i,
+                  fix(0.11400) * i + half),
+            "cb": (-fix(0.16874) * i, -fix(0.33126) * i,
+                   fix(0.50000) * i + offset + half - 1),
+            "cr": (fix(0.50000) * i + offset + half - 1,
+                   -fix(0.41869) * i, -fix(0.08131) * i)}
+
+
+_RGB_YCC = _rgb_ycc_tables()
+
+
+def _pad_edge(p: np.ndarray, h: int, w: int) -> np.ndarray:
+    """p extended to (h, w) by repeating its last row and column."""
+    return np.pad(p, ((0, h - p.shape[0]), (0, w - p.shape[1])), mode="edge")
+
+
+def _h2v2_downsample(p: np.ndarray) -> np.ndarray:
+    """libjpeg's `h2v2_downsample` of an (even, even) plane: the 2x2 sum
+    plus a bias of 1, 2, 1, 2, ... along each output row, shifted by 2."""
+    s = (p[0::2, 0::2].astype(np.int32) + p[0::2, 1::2] + p[1::2, 0::2]
+         + p[1::2, 1::2])
+    bias = np.where(np.arange(s.shape[1]) % 2 == 0, 1, 2)
+    return ((s + bias) >> 2).astype(np.uint8)
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def encode_jpeg(im: np.ndarray, quality: int = 95) -> bytes:
+    """The bytes `cv2.imencode(".jpg", im, [cv2.IMWRITE_JPEG_QUALITY,
+    quality])[1]` gives (libjpeg-turbo's defaults as OpenCV sets them),
+    for (H, W, 3) uint8 BGR or (H, W) uint8 gray: a baseline JFIF file,
+    the quality's scaled Annex K tables, 4:2:0 YCbCr (Y 2x2, Cb and Cr
+    1x1) or one gray component, the standard Huffman tables, no restart
+    interval. libjpeg-turbo's integer pipeline in numpy: the fixed-point
+    RGB -> YCbCr tables (`jccolor.c`), edge replication to the MCU,
+    `h2v2_downsample` (`jcsample.c`), the `jpeg_fdct_islow` DCT
+    (`jfdctint.c`), quantization by reciprocals (`jcdctmgr.c`) and the
+    padding blocks of the last MCU row and column (`jccoefct.c`); the
+    Huffman coding runs in C++ (`csrc/jpeg_entropy.cpp`)."""
+    im = np.asarray(im)
+    if im.ndim == 3 and im.shape[2] == 1:
+        im = im[..., 0]
+    if im.dtype != np.uint8 or not (im.ndim == 2 or (im.ndim == 3 and
+                                                     im.shape[2] == 3)) \
+            or im.shape[0] == 0 or im.shape[1] == 0 \
+            or max(im.shape[:2]) > 65535:
+        raise ValueError(f"encode_jpeg takes (H, W) or (H, W, 3) uint8 of "
+                         f"at most 65535 a side, not {im.shape} {im.dtype}")
+    h, w = im.shape[:2]
+    quant = [_quant_table(0, quality), _quant_table(1, quality)]
+    if im.ndim == 2:
+        bh, bw = -(-h // 8), -(-w // 8)
+        blocks = [_fdct_quantize(_pad_edge(im, 8 * bh, 8 * bw), quant[0])]
+        comps = [(1, 0x11, 0)]                # (id, h x v, table)
+        mcux, mcuy = bw, bh
+    else:
+        b, g, r = (im[..., k].astype(np.int64) for k in range(3))
+        ycc = [((t[0][r] + t[1][g] + t[2][b]) >> 16).astype(np.uint8)
+               for t in (_RGB_YCC["y"], _RGB_YCC["cb"], _RGB_YCC["cr"])]
+        mcux, mcuy = -(-w // 16), -(-h // 16)
+        # Y: edge-replicated to whole blocks; the blocks the 2x2 MCUs need
+        # past them are padding blocks, all zero but the DC, which repeats
+        # the block to the left (a padding column) or the MCU's last block
+        # of the row above (a padding row)
+        bh, bw = -(-h // 8), -(-w // 8)
+        real = _fdct_quantize(_pad_edge(ycc[0], 8 * bh, 8 * bw), quant[0])
+        y = np.zeros((2 * mcuy, 2 * mcux, 64), np.int16)
+        y[:bh, :bw] = real
+        if bw % 2:
+            y[:bh, bw, 0] = y[:bh, bw - 1, 0]
+        if bh % 2:
+            y[bh, :, 0] = np.repeat(y[bh - 1, 1::2, 0], 2)
+        blocks = [y]
+        # Cb, Cr: rows to an even count and columns to whole MCUs by
+        # replication, 2x2 averaged, then rows to whole blocks
+        for p in ycc[1:]:
+            p = _pad_edge(p, h + h % 2, 16 * mcux)
+            blocks.append(_fdct_quantize(
+                _pad_edge(_h2v2_downsample(p), 8 * mcuy, 8 * mcux),
+                quant[1]))
+        comps = [(1, 0x22, 0), (2, 0x11, 1), (3, 0x11, 1)]
+    coefs = np.ascontiguousarray(np.concatenate(
+        [x.reshape(-1, 64) for x in blocks]))
+    params, off = [], 0
+    for (cid, hv, t), x in zip(comps, blocks):
+        params.append((hv >> 4, hv & 15, x.shape[1], off, t, t))
+        off += x.shape[0] * x.shape[1]
+    params = np.array(params, np.int32)
+    tables = [(0, 0), (0, 1), (1, 0), (1, 1)]
+    bits = np.frombuffer(b"".join(_STD_HUFFMAN[k][0] for k in tables),
+                         np.uint8)
+    vals = np.zeros((4, 256), np.uint8)
+    for i, k in enumerate(tables):
+        vals[i, :len(_STD_HUFFMAN[k][1])] = np.frombuffer(_STD_HUFFMAN[k][1],
+                                                          np.uint8)
+    cap = 512 * len(coefs) + 1024
+    out = np.empty(cap, np.uint8)
+    n = _entropy_lib().jpeg_encode_scan(
+        len(comps), params.ctypes.data, coefs.ctypes.data, bits.ctypes.data,
+        vals.ctypes.data, mcux, mcuy, out.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError(f"JPEG entropy coding failed ({n})")
+    used = sorted({t for _, _, t in comps})
+    head = [b"\xff\xd8", _segment(0xE0, b"JFIF\0\x01\x01\x00"
+                                  + struct.pack(">HH", 1, 1) + b"\0\0")]
+    head += [_segment(0xDB, bytes([t]) + quant[t][_NATURAL].astype(
+        np.uint8).tobytes()) for t in used]
+    head.append(_segment(0xC0, struct.pack(">BHHB", 8, h, w, len(comps))
+                         + b"".join(bytes(c) for c in comps)))
+    head += [_segment(0xC4, bytes([cls << 4 | t]) + b"".join(
+        _STD_HUFFMAN[(cls, t)])) for t in used for cls in (0, 1)]
+    head.append(_segment(0xDA, bytes([len(comps)]) + b"".join(
+        bytes([cid, t << 4 | t]) for cid, _, t in comps) + b"\x00\x3f\x00"))
+    return b"".join(head) + out[:n].tobytes() + b"\xff\xd9"
+
+
+def write_jpeg(path: Union[str, Path], im: np.ndarray,
+               quality: int = 95) -> None:
+    """`encode_jpeg` into a file: the bytes `cv2.imwrite(path, im,
+    [cv2.IMWRITE_JPEG_QUALITY, quality])` writes."""
+    Path(path).write_bytes(encode_jpeg(im, quality))
+
+
 def imread(path: Union[str, Path]) -> np.ndarray:
     """(H, W, 3) uint8 BGR, as `cv2.imread`: by the file's signature a PNG
     by `read_png`, a JPEG by `read_jpeg`, any other format by cv2,
@@ -799,21 +1043,34 @@ def warp_perspective(im: np.ndarray, H: np.ndarray,
 
 
 def load_textures(tex_dir: Union[str, Path], n: int, rng: np.random.Generator,
-                  res: Tuple[int, int] = (256, 256)) -> List[np.ndarray]:
-    """Random texture crops of at most `res` (w, h) from `n` PNGs of a pool
-    directory, searched recursively in sorted order: the draws of
-    `apps/render_depth_dataset.load_textures`, which takes `*.png` and
-    `*.jpg` of the directory itself; on a flat directory of PNGs the two
-    give the same crops from the same `rng`."""
-    paths = sorted(str(p) for p in Path(tex_dir).rglob("*.png"))
+                  res: Tuple[int, int] = (256, 256),
+                  recursive: bool = True) -> List[np.ndarray]:
+    """Random texture crops of at most `res` (w, h) from `n` images of a
+    pool directory, in sorted order, with the draws of the JAX package's
+    `apps/render_depth_dataset.load_textures`. By default the PNGs under
+    `tex_dir` are searched recursively (the port's SLAM and training
+    sources); with `recursive=False` the pool is `*.png` and `*.jpg` of
+    the directory itself, as the JAX loader takes it. Either way a file
+    that is no PNG or JPEG is skipped, as cv2.imread's None is there; on a
+    flat directory of PNGs the two give the same crops from the same
+    `rng`."""
+    if recursive:
+        paths = sorted(str(p) for p in Path(tex_dir).rglob("*.png"))
+    else:
+        paths = sorted(glob.glob(os.path.join(str(tex_dir), "*.png"))
+                       + glob.glob(os.path.join(str(tex_dir), "*.jpg")))
     if not paths:
-        raise FileNotFoundError(f"no PNG textures under {tex_dir}")
+        raise FileNotFoundError(f"no textures in {tex_dir}")
     out = []
     for p in rng.choice(paths, size=min(n, len(paths)), replace=False):
-        im = read_png(p)
+        im = imread_if_image(p)
+        if im is None:
+            continue
         h, w = im.shape[:2]
         ch, cw = min(res[1], h), min(res[0], w)
         y0 = rng.integers(0, h - ch + 1)
         x0 = rng.integers(0, w - cw + 1)
         out.append(np.ascontiguousarray(im[y0:y0 + ch, x0:x0 + cw]))
+    if not out:
+        raise RuntimeError("no readable textures")
     return out

@@ -92,7 +92,20 @@ Run from the root of a checkout. In order, it
      2048 keypoints), then `apps/bench.py` at its defaults and
      `apps/bench_suite.py` (A, B, C and D counted): every key of the JAX
      benchmark's line present and no error, no time under its floor;
- 13. times each kernel against its plain version, its bound and, where one
+ 13. runs the bundle adjustment (and its sharded solve on a 1x1 mesh), the
+     pose graph and the batched RANSAC inside `torch.inference_mode()`
+     (`inference_mode_phase`): each equal bit for bit to the same call
+     outside it;
+ 14. drives the data generators (`datagen_phase`) in subprocesses where
+     cv2, h5py and jax cannot be imported: `apps/render_depth_dataset`
+     (6 scenes of 4 views at 800x608), `apps/make_eval_variants` (640)
+     and `apps/render_scannet_fixture` (640x480); then, with cv2 and h5py
+     unimportable here too, three resident training steps on the new
+     dataset, `eval/megadepth1500` on its two manifests and
+     `eval/scannet1500` on the new fixture (A, B and C counted), the
+     writers' host ms, and the three A/B probes of `tools/` at reduced
+     iterations;
+ 15. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function (D's
      backward also at LighterGlue training's shape), and profiles one call
      of each matcher.
@@ -2626,6 +2639,333 @@ def bench_phase(root: Path, counters: dict) -> dict:
             "errs": errs, "times": times, "phase_s": phase_s}
 
 
+def inference_mode_phase() -> dict:
+    """The bundle adjustment (single device and `parallel/ba.py`'s sharded
+    solve on a 1x1 mesh), the pose graph and `ransac_essential_batch` on
+    the card inside `torch.inference_mode()`, each against the same call
+    outside it: equal bit for bit. Their `torch.func` forward-mode
+    Jacobians take no inference tensor on this torch build (the fault
+    `sfm/lie.outside_inference_mode` repairs), so each of these calls
+    raised inside inference mode before it."""
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch.apps.bench_suite import _synth_ba
+    from accelerated_features_tpu_torch.geometry import ransac_essential_batch
+    from accelerated_features_tpu_torch.parallel.ba import \
+        bundle_adjust_sharded
+    from accelerated_features_tpu_torch.parallel.mesh import local_mesh
+    from accelerated_features_tpu_torch.sfm import ba
+    from accelerated_features_tpu_torch.sfm.posegraph import (
+        PoseGraph, optimize_pose_graph)
+    dev = torch.device("cuda")
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b)
+                   if isinstance(x, torch.Tensor))
+
+    def ba_run():
+        p, info = ba.bundle_adjust(_synth_ba(50, 5000, 4, dev), iters=5)
+        return [*p, *info.values()]
+
+    def sharded_run():
+        p, info = bundle_adjust_sharded(_synth_ba(6, 200, 4, dev),
+                                        local_mesh(), iters=5)
+        return [*p, *info.values()]
+
+    rng = np.random.default_rng(0)
+    g = PoseGraph.empty()
+    for i in range(8):
+        g.add_keyframe(np.r_[0.01 * i, 0, 0, i, 0, 0] + rng.normal(0, 0.01, 6))
+    for i in range(7):
+        g.add_edge(i, i + 1, np.r_[0.01, 0, 0, 1, 0, 0])
+    g.add_edge(0, 7, np.r_[0.3, 0, 0, 7, 0, 0])
+
+    def pgo_run():
+        poses, info = optimize_pose_graph(g, device="cuda")
+        return [torch.from_numpy(poses), torch.tensor(list(info.values()))]
+
+    scenes = [two_view_scene(200 + s, 2048) for s in range(8)]
+    p0 = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
+    p1 = torch.from_numpy(np.stack([s[1] for s in scenes])).to(dev)
+    Ks = torch.from_numpy(np.stack([s[2] for s in scenes])).float().to(dev)
+
+    def ransac_run():
+        return list(ransac_essential_batch(
+            p0, p1, Ks, Ks, generator=torch.Generator(dev).manual_seed(7)))
+
+    out = {}
+    for name, run in (("bundle_adjust c50 p5000", ba_run),
+                      ("bundle_adjust_sharded 1x1", sharded_run),
+                      ("optimize_pose_graph 8 poses", pgo_run),
+                      ("ransac_essential_batch 8 x 2048", ransac_run)):
+        ref = run()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ok = len(got) == len(ref) and same(got, ref)
+        print(f"inference mode: {name} inside torch.inference_mode() equals "
+              f"the call outside it: {ok} ({wall:.1f} ms)")
+        check(ok, f"{name} differs inside inference mode")
+        out[name] = wall
+    return out
+
+
+DATAGEN_MD = ["--scenes", "4", "--holdout_scenes", "2", "--views", "4",
+              "--res", "800x608", "--seed", "0"]
+DATAGEN_SCANNET = ["--scenes", "2", "--views", "3", "--res", "640x480",
+                   "--seed", "0"]
+# one generator job, run as `python -c DATAGEN_JOB ROOT JOB OUT TEXTURES`
+# with cv2, h5py and jax unimportable; prints its walls as a JSON line
+DATAGEN_JOB = r"""
+import json, sys, time
+for m in ("cv2", "h5py", "jax"):
+    sys.modules[m] = None
+root, job, out, tex, args = sys.argv[1], sys.argv[2], sys.argv[3], \
+    sys.argv[4], json.loads(sys.argv[5])
+sys.path.insert(0, root)
+from accelerated_features_tpu_torch.apps import (
+    make_eval_variants, render_depth_dataset, render_scannet_fixture)
+walls = {}
+t0 = time.perf_counter()
+if job == "megadepth":
+    walls.update(render_depth_dataset.main(
+        ["--out", out, "--textures", tex] + args))
+    walls["render_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    make_eval_variants.main(["--json", out + "/rendered_pose_pairs.json",
+                             "--data_root", out, "--max_dim", "640",
+                             "--out", out + "/pairs_640.json"])
+    walls["variants_s"] = time.perf_counter() - t0
+else:
+    walls["pairs"] = len(render_scannet_fixture.main(
+        ["--out", out, "--textures", tex] + args))
+    walls["render_s"] = time.perf_counter() - t0
+print("DATAGEN " + json.dumps(walls), flush=True)
+"""
+
+
+def datagen_phase(root: Path, counters: dict) -> dict:
+    """The data generators on the card's machine, which has neither cv2
+    nor h5py, and the port on what they wrote.
+
+    (a) From a flat temporary copy of the 60 committed holdout PNGs, two
+    subprocesses started together, each with cv2, h5py and jax
+    unimportable: `apps/render_depth_dataset` (4 train + 2 holdout scenes
+    of 4 views at 800x608, seed 0: PNG views, gzip-chunked HDF5 depths,
+    the scene indices and `rendered_pose_pairs.json`), then
+    `apps/make_eval_variants --max_dim 640` on its manifest; and
+    `apps/render_scannet_fixture` at 640x480 (2 scenes of 3 views, JPEG
+    frames). Their walls a scene and a view are printed; every file is
+    where the readers look for it and reads back (`read_png`,
+    `utils/hdf5.read_dataset`, `decode_jpeg`) at its size. (b) With cv2
+    and h5py unimportable in this process too: `train.run.main` on the new
+    dataset (`xfeat_megadepth`, batch 6 at 800x608, 3 resident steps, every
+    loss finite); `eval/megadepth1500.run_benchmark_batched` on the
+    rendered holdout pairs and on their 640 variant (kernels A, B and C
+    each launched, AUCs finite); `eval/scannet1500.run_benchmark` on the
+    new fixture (A, B and C launched). (c) The writers' host ms:
+    `encode_jpeg` of a 640x480 frame, `write_dataset` of a 608x800 map
+    with gzip, `write_png` of an 800x608 view (each read back equal).
+    (d) The three A/B probes of `tools/` at reduced iterations. Returns
+    the walls, launches and AUCs."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch.apps.eval_slam import device_label
+    from accelerated_features_tpu_torch.eval import megadepth1500 as mdb
+    from accelerated_features_tpu_torch.eval import scannet1500 as sn
+    from accelerated_features_tpu_torch.tools import (measure_select,
+                                                      measure_stem,
+                                                      probe_int8)
+    from accelerated_features_tpu_torch.train import run as xrun
+    from accelerated_features_tpu_torch.utils.hdf5 import (read_dataset,
+                                                           write_dataset)
+    from accelerated_features_tpu_torch.utils.imageio import (decode_jpeg,
+                                                              encode_jpeg,
+                                                              read_png,
+                                                              write_png)
+    label = device_label(torch.device("cuda"))
+    weights = str(root / "artifacts" / "run_md_ckpt13250.npz")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_datagen_"))
+    saved = {m: sys.modules.get(m) for m in ("cv2", "h5py")}
+    for m in saved:
+        sys.modules[m] = None
+    out: dict = {}
+    try:
+        # ---- (a) the generators, cv2, h5py and jax unimportable ---------
+        tex = tmp / "textures"
+        tex.mkdir()
+        holdout = root / "artifacts" / "rendered_pose_holdout"
+        for i, png in enumerate(sorted(holdout.rglob("*.png"))):
+            shutil.copy(png, tex / f"{i:03d}.png")
+        md, fix = tmp / "megadepth", tmp / "scannet"
+        t0 = time.perf_counter()
+        procs = {job: subprocess.Popen(
+            [sys.executable, "-c", DATAGEN_JOB, str(root), job, str(d),
+             str(tex), json.dumps(args)], stdout=subprocess.PIPE, text=True)
+            for job, d, args in (("megadepth", md, DATAGEN_MD),
+                                 ("scannet", fix, DATAGEN_SCANNET))}
+        walls = {}
+        try:
+            for job, proc in procs.items():
+                stdout, _ = proc.communicate(timeout=400)
+                check(proc.returncode == 0,
+                      f"the {job} generator failed ({proc.returncode})")
+                line = [x for x in stdout.splitlines()
+                        if x.startswith("DATAGEN ")][-1]
+                walls[job] = json.loads(line[len("DATAGEN "):])
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        gen_s = time.perf_counter() - t0
+        n_views = 6 * 4
+        pngs = sorted((md / "MegaDepth_v1").rglob("*.png"))
+        h5s = sorted((md / "MegaDepth_v1").rglob("*.h5"))
+        npzs = sorted((md / "train_data").rglob("*.npz"))
+        eval_pairs = json.loads((md / "rendered_pose_pairs.json").read_text())
+        v640 = json.loads((md / "pairs_640.json").read_text())
+        jpgs = sorted(fix.rglob("*.jpg"))
+        check(len(pngs) == n_views and len(h5s) == n_views
+              and len(npzs) == 4 and len(eval_pairs) > 0
+              and len(v640) == len(eval_pairs) and len(jpgs) == 6
+              and walls["megadepth"]["train_pairs"] > 0,
+              f"the generators wrote {len(pngs)} views, {len(h5s)} depths, "
+              f"{len(npzs)} indices, {len(eval_pairs)} eval pairs, "
+              f"{len(jpgs)} ScanNet frames: {walls}")
+        check(read_png(pngs[0]).shape == (608, 800, 3)
+              and read_dataset(h5s[0]).shape == (608, 800)
+              and bool(np.isfinite(read_dataset(h5s[-1])).all())
+              and decode_jpeg(jpgs[0].read_bytes()).shape == (480, 640, 3)
+              and max(v640[0]["size0_hw"]) == 640,
+              "a generated file does not read back at its size")
+        md_w = walls["megadepth"]
+        print(f"datagen with cv2, h5py and jax unimportable: "
+              f"render_depth_dataset 6 scenes x 4 views 800x608 in "
+              f"{md_w['render_s']:.2f} s ({md_w['render_s'] / 6:.3f} s a "
+              f"scene, {md_w['render_s'] / n_views:.3f} s a view incl. PNG "
+              f"and gzip HDF5 writes; {md_w['train_pairs']} train pairs, "
+              f"{md_w['eval_pairs']} eval pairs), make_eval_variants 640 in "
+              f"{md_w['variants_s']:.3f} s, render_scannet_fixture 2 scenes "
+              f"x 3 views 640x480 in {walls['scannet']['render_s']:.2f} s "
+              f"({walls['scannet']['render_s'] / 6:.3f} s a view) in "
+              f"parallel; both done in {gen_s:.2f} s on the host of {label}")
+        out["walls"], out["gen_s"] = walls, gen_s
+
+        # ---- (b) the port on what was written ---------------------------
+        t0 = time.perf_counter()
+        hist = xrun.main(["--ckpt_save_path", str(tmp / "ckpt"),
+                          "--megadepth_root_path", str(md),
+                          "--training_res", f"{W},{H}", "--save_ckpt_every",
+                          "1000", "--training_type", "xfeat_megadepth",
+                          "--batch_size", "6", "--n_steps", "3",
+                          "--md_resident"])
+        check(len(hist) == 3 and all(np.isfinite(h["loss_total"])
+                                     for h in hist),
+              f"training on the generated dataset: {hist}")
+        print(f"datagen train.run.main on the generated dataset (resident, "
+              f"batch 6 at {W}x{H}): losses "
+              f"{[h['loss_total'] for h in hist]}, step walls s "
+              f"{[round(h['wall_s'], 4) for h in hist]}, run "
+              f"{time.perf_counter() - t0:.1f} s on {label}")
+        out["losses"] = [h["loss_total"] for h in hist]
+        for tag, manifest in (("rendered", "rendered_pose_pairs.json"),
+                              ("640", "pairs_640.json")):
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            summary = mdb.run_benchmark_batched(
+                str(md), str(md / manifest), top_k=TOP_K, weights=weights,
+                progress=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: counters[k].launches
+                        for k in ("detect_fused", "bicubic", "mnn")}
+            aucs = [summary[f"auc@{t}"] for t in (5, 10, 20)]
+            print(f"datagen megadepth1500 batched on the generated holdout "
+                  f"({tag}, {len(eval_pairs)} pairs, top_k {TOP_K}, "
+                  f"posekit): AUC@5/10/20 {aucs}, mean matches "
+                  f"{summary['mean_matches']:.1f}, {wall:.2f} s, launches "
+                  f"{launches} on {label}")
+            check(all(n > 0 for n in launches.values())
+                  and all(np.isfinite(a) and 0 <= a <= 1 for a in aucs),
+                  f"the pose eval on the generated pairs ({tag}): "
+                  f"{summary} {launches}")
+            out[f"megadepth_{tag}"] = {"aucs": aucs, "launches": launches,
+                                       "wall_s": wall}
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        best = sn.run_benchmark(
+            None, str(fix), str(fix / "test.npz"), workers=0,
+            batched={"top_k": SCANNET_K, "weights": weights,
+                     "batch_size": 16})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: counters[k].launches
+                    for k in ("detect_fused", "bicubic", "mnn")}
+        aucs = [best[f"auc@{t}"] for t in (5, 10, 20)]
+        print(f"datagen scannet1500 on the generated fixture (6 pairs, "
+              f"top_k {SCANNET_K}): best AUC@5/10/20 {aucs} (threshold "
+              f"{best['best_threshold']} px), {wall:.2f} s, launches "
+              f"{launches} on {label}")
+        check(all(n > 0 for n in launches.values())
+              and all(np.isfinite(a) and 0 <= a <= 1 for a in aucs),
+              f"ScanNet on the generated fixture: {best} {launches}")
+        out["scannet"] = {"aucs": aucs, "launches": launches, "wall_s": wall}
+
+        # ---- (c) the writers' host time -----------------------------------
+        frame = decode_jpeg(jpgs[0].read_bytes())
+        depth = read_dataset(h5s[0])
+        view = read_png(pngs[0])
+        timings = {}
+        for name, write, check_back in (
+                ("encode_jpeg 640x480",
+                 lambda: encode_jpeg(frame),
+                 lambda r: decode_jpeg(r).shape == frame.shape),
+                ("write_dataset 608x800 gzip",
+                 lambda: write_dataset(tmp / "d.h5", depth,
+                                       compression="gzip"),
+                 lambda r: np.array_equal(read_dataset(tmp / "d.h5"),
+                                          depth)),
+                ("write_png 800x608",
+                 lambda: write_png(tmp / "v.png", view),
+                 lambda r: np.array_equal(read_png(tmp / "v.png"), view))):
+            ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                r = write()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            check(check_back(r), f"{name} does not read back")
+            timings[name] = ms
+            print(f"datagen writer {name}: ms {[round(x, 3) for x in ms]} "
+                  f"(median {sorted(ms)[2]:.3f}) on the host of {label}")
+        out["writers_ms"] = timings
+
+        # ---- (d) the A/B probes, reduced iterations -------------------------
+        t0 = time.perf_counter()
+        out["measure_select"] = measure_select.main(["--iters", "3"])
+        out["measure_stem"] = measure_stem.main(["--iters", "3"])
+        out["probe_int8"] = probe_int8.main(["--iters", "5"])
+        print(f"datagen probes: {time.perf_counter() - t0:.1f} s on {label}")
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                del sys.modules[m]
+            else:
+                sys.modules[m] = mod
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2679,7 +3019,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     # ---- 1. build ---------------------------------------------------------
-    t0 = time.time()
+    t_main = t0 = time.time()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.time() - t0:.1f} s")
     for name, lib in sorted(libs.items()):  # ptxas: registers and spills
@@ -3330,28 +3670,45 @@ def main() -> int:
 
     # ---- the pose path ------------------------------------------------------
     pose_phase()
+    print(f"phase pose_phase done at {time.time() - t_main:.1f} s")
 
     # ---- the SfM/SLAM path --------------------------------------------------
     slam = slam_phase(root, counters)
+    print(f"phase slam_phase done at {time.time() - t_main:.1f} s")
 
     # ---- the training path --------------------------------------------------
     train = train_phase(root, counters)
+    print(f"phase train_phase done at {time.time() - t_main:.1f} s")
 
     # ---- the serving path ---------------------------------------------------
     served = serve_phase(root, counters)
+    print(f"phase serve_phase done at {time.time() - t_main:.1f} s")
 
     # ---- ScanNet-1500 -------------------------------------------------------
     scannet = scannet_phase(root, counters)
+    print(f"phase scannet_phase done at {time.time() - t_main:.1f} s")
 
     # ---- MegaDepth depth training, then the multi-GPU layer -----------------
     mega = megadepth_phase(root, counters)
+    print(f"phase megadepth_phase done at {time.time() - t_main:.1f} s")
     multi = multigpu_phase(root, mega["batch"])
+    print(f"phase multigpu_phase done at {time.time() - t_main:.1f} s")
 
     # ---- the command-line apps and examples --------------------------------
     apps = apps_phase(root, counters)
+    print(f"phase apps_phase done at {time.time() - t_main:.1f} s")
 
     # ---- the benchmark programs ---------------------------------------------
     benched = bench_phase(root, counters)
+    print(f"phase bench_phase done at {time.time() - t_main:.1f} s")
+
+    # ---- BA, pose graph and RANSAC inside inference mode --------------------
+    inference_mode_phase()
+    print(f"phase inference_mode_phase done at {time.time() - t_main:.1f} s")
+
+    # ---- the data generators, and the port on their output -----------------
+    datagen = datagen_phase(root, counters)
+    print(f"phase datagen_phase done at {time.time() - t_main:.1f} s")
 
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
@@ -3684,6 +4041,12 @@ def main() -> int:
                 row.setdefault("times_bench", {})[shape] = {
                     "ms": ms, "plain_ms": pms, "bound_ms": bms,
                     "bound_by": by}
+    for row in rows:  # launches in each run on the generated data
+        for tag in ("megadepth_rendered", "megadepth_640", "scannet"):
+            n = datagen[tag]["launches"].get(row["name"])
+            if n:
+                row[f"launches_datagen_{tag}"] = n
+    print(f"chip_smoke done in {time.time() - t_main:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(device_label(dev))
     print(json.dumps({"ok": True, "device": {

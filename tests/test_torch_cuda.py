@@ -59,6 +59,26 @@ def test_detect_kernel_matches_plain(dev, b, h, w, thr):
     assert torch.equal(xy, ref_xy) and torch.equal(_bits(s), _bits(ref_s))
 
 
+@pytest.mark.parametrize("b,h,w,thr", [(1, 5, 9, 0.012), (3, 8, 16, 0.012),
+                                       (2, 4, 4, 0.0)])
+def test_detect_candidates_kernel_matches_plain(dev, b, h, w, thr):
+    """Kernel A's candidate entry alone: each 2x2 tile's best score and its
+    position, equal to `tile_candidates(score_map(...))` bit for bit."""
+    from accelerated_features_tpu_torch.ops.detect import tile_candidates
+    rng = np.random.default_rng(h * w + 1)
+    kheat = heatmap_decode(torch.tensor(rng.normal(size=(b, h, w, 65)) * 3,
+                                        dtype=torch.float32))
+    if thr == 0.0:
+        kheat = torch.round(kheat * 64) / 64
+    rel = torch.tensor(rng.uniform(0.1, 1, (b, h, w)), dtype=torch.float32)
+    kheat, rel = kheat.to(dev), rel.to(dev)
+    ref = tile_candidates(score_map(kheat, rel, thr))
+    n = detect_fused.detect_candidates.launches
+    best, sub = detect_fused.detect_candidates(kheat, rel, thr)
+    assert detect_fused.detect_candidates.launches == n + 1
+    assert torch.equal(_bits(best), _bits(ref[0])) and torch.equal(sub, ref[1])
+
+
 def _bits(t):
     return t.float().contiguous().view(torch.int32)
 

@@ -4,7 +4,13 @@ contiguous layout, gzip chunks (the renderer's `compression="gzip"`),
 gzip with shuffle, edge chunks, float64, deep chunk B-trees, nested
 groups, bytes in memory, the committed MegaDepth fixture's maps and
 the committed 608x800 map.
-What it does not read raises ValueError naming it."""
+What it does not read raises ValueError naming it.
+
+The writer (`utils/hdf5.write_dataset`): its files read back exactly
+through h5py and `read_dataset`, contiguous and gzip, float32 and
+float64, square and not, with h5py's own chunk shape (`guess_chunk`),
+compression, level and shuffle; a deep chunk tree answers h5py's
+slices."""
 
 from pathlib import Path
 
@@ -12,7 +18,9 @@ import h5py
 import numpy as np
 import pytest
 
-from accelerated_features_tpu_torch.utils.hdf5 import read_dataset
+from accelerated_features_tpu_torch.utils.hdf5 import (guess_chunk,
+                                                       read_dataset,
+                                                       write_dataset)
 
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "megadepth_mini"
 FULL_SIZE = FIXTURE.parent / "megadepth_depth_608x800" / "depth.h5"
@@ -130,3 +138,57 @@ def test_committed_full_size_map_equals_h5py_and_its_twin():
     got = read_dataset(FULL_SIZE.read_bytes())
     _same(got, ref)
     _same(got, np.load(FULL_SIZE.with_suffix(".npy")))
+
+
+# -- the writer --------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(608, 800), (7, 9), (1, 1), (240, 320),
+                                   (37, 41, 3), (100,)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("compression", [None, "gzip"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_written_files_read_back_exactly(tmp_path, shape, compression,
+                                         dtype):
+    data = np.random.default_rng(len(shape) * 7 + shape[0]).normal(
+        size=shape).astype(dtype)
+    write_dataset(tmp_path / "port.h5", data, compression=compression)
+    _write(tmp_path / "h5py.h5", data, compression=compression)
+    with h5py.File(tmp_path / "port.h5", "r") as f, \
+            h5py.File(tmp_path / "h5py.h5", "r") as g:
+        _same(f["depth"][()], data)
+        meta = [(d.chunks, d.compression, d.compression_opts, d.shuffle,
+                 d.fillvalue) for d in (f["depth"], g["depth"])]
+        assert meta[0] == meta[1]
+    _same(read_dataset(tmp_path / "port.h5"), data)
+
+
+def test_guess_chunk_equals_h5py():
+    from h5py._hl.filters import guess_chunk as h5py_guess
+    for shape in [(608, 800), (480, 640), (1, 1), (7, 3), (100,),
+                  (2000, 2000), (37, 41, 3), (1024, 768), (5000, 5000)]:
+        for item in (4, 8):
+            assert guess_chunk(shape, item) == h5py_guess(shape, None, item)
+
+
+def test_written_deep_chunk_tree_answers_slices(tmp_path):
+    data = np.random.default_rng(1).normal(size=(2000, 2000)).astype(
+        np.float32)
+    write_dataset(tmp_path / "big.h5", data, name="map", compression="gzip")
+    with h5py.File(tmp_path / "big.h5", "r") as f:
+        d = f["map"]
+        assert d.chunks == (63, 125) and d.id.get_num_chunks() == 512
+        for sl in (np.s_[100:200, 50:60], np.s_[1999, 1999], np.s_[-5:, :7],
+                   np.s_[1000:1300, 1500:2000]):
+            assert np.array_equal(d[sl], data[sl])
+    _same(read_dataset(tmp_path / "big.h5", "map"), data)
+
+
+@pytest.mark.parametrize("args", [
+    (np.zeros((3, 3), np.int32), {}), (np.zeros((0, 3), np.float32), {}),
+    (np.zeros((3, 3), np.float32), {"compression": "lzf"}),
+    (np.zeros((3, 3), np.float32), {"name": "a/b"})],
+    ids=["int32", "empty", "lzf", "nested-name"])
+def test_writer_refuses(tmp_path, args):
+    data, kw = args
+    with pytest.raises(ValueError):
+        write_dataset(tmp_path / "x.h5", data, **kw)

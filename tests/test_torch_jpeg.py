@@ -1,5 +1,5 @@
-"""The port's cv2-free JPEG decoder and resize (`utils/imageio`) against
-cv2, on the CPU.
+"""The port's cv2-free JPEG decoder, JPEG encoder and resize
+(`utils/imageio`) against cv2, on the CPU.
 
 `decode_jpeg` must equal `cv2.imdecode` under `np.array_equal`, colour and
 gray, on every frame of the committed ScanNet-layout fixture and on a grid
@@ -7,9 +7,14 @@ of files `cv2.imencode` writes here (qualities, chroma samplings, gray
 input, restart intervals, sizes that are not multiples of the MCU), and on
 the fixture's frames re-coded as one scan a component (single-component
 scans, with and without restart markers). The kinds it does not read must
-raise. `resize` must equal `cv2.resize` on uint8; float32 is within
-1e-6 of the image's largest magnitude (cv2's float path weighs in more
-than float32 precision, the port in float64)."""
+raise. `encode_jpeg` must give `cv2.imencode(".jpg", ...)`'s bytes, colour
+and gray, on seeded noise and on rendered frames at 1x1, 7x9, 17x33,
+240x320 and 608x800 (quality 95, cv2's default) and over a grid of
+qualities; `decode_jpeg` of its bytes equals `cv2.imdecode` of cv2's,
+and `write_jpeg` writes what `cv2.imwrite` writes. `resize` must equal
+`cv2.resize` on uint8; float32 is within 1e-6 of the image's largest
+magnitude (cv2's float path weighs in more than float32 precision, the
+port in float64)."""
 
 import struct
 from pathlib import Path
@@ -289,6 +294,63 @@ def test_entropy_library_builds_into_the_port():
     path = native.library_path(imageio._ENTROPY_SOURCE, "jpeg_entropy")
     decode_jpeg(FRAMES[0].read_bytes())
     assert path.parent == native.BUILD_ROOT and path.exists()
+
+
+# -- the encoder -------------------------------------------------------------
+
+ENCODE_SIZES = [(1, 1), (7, 9), (17, 33), (240, 320), (608, 800)]
+
+
+def _content(kind, h, w, gray):
+    if kind == "noise":
+        rng = np.random.default_rng(h * 1000 + w)
+        im = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        return im[..., 1].copy() if gray else im
+    return _image(h, w, gray)
+
+
+@pytest.mark.parametrize("size", ENCODE_SIZES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ["noise", "rendered"])
+@pytest.mark.parametrize("gray", [False, True], ids=["color", "gray"])
+def test_encode_equals_cv2(size, kind, gray):
+    im = _content(kind, *size, gray)
+    ref = cv2.imencode(".jpg", im)[1].tobytes()
+    got = imageio.encode_jpeg(im)
+    assert got == ref, f"{len(got)} vs {len(ref)} bytes"
+    back = cv2.imdecode(np.frombuffer(ref, np.uint8), cv2.IMREAD_UNCHANGED)
+    assert np.array_equal(decode_jpeg(got, gray), back)
+
+
+@pytest.mark.parametrize("quality", [1, 10, 50, 75, 90, 100])
+@pytest.mark.parametrize("size", [(17, 33), (240, 320)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_encode_quality_grid_equals_cv2(quality, size):
+    for gray in (False, True):
+        im = _content("rendered", *size, gray)
+        ref = cv2.imencode(".jpg", im, [cv2.IMWRITE_JPEG_QUALITY,
+                                        quality])[1].tobytes()
+        assert imageio.encode_jpeg(im, quality) == ref
+
+
+def test_write_jpeg_equals_cv2_imwrite(tmp_path):
+    im = _content("rendered", 240, 320, False)
+    cv2.imwrite(str(tmp_path / "cv2.jpg"), im)
+    imageio.write_jpeg(tmp_path / "port.jpg", im)
+    assert (tmp_path / "port.jpg").read_bytes() == \
+        (tmp_path / "cv2.jpg").read_bytes()
+    assert np.array_equal(read_jpeg(tmp_path / "port.jpg"),
+                          cv2.imread(str(tmp_path / "cv2.jpg")))
+
+
+@pytest.mark.parametrize("bad", [np.zeros((4, 4, 3), np.float32),
+                                 np.zeros((4, 4, 4), np.uint8),
+                                 np.zeros((0, 4), np.uint8),
+                                 np.zeros((4,), np.uint8)],
+                         ids=["float", "4-channel", "empty", "1-d"])
+def test_encode_refuses_other_arrays(bad):
+    with pytest.raises(ValueError):
+        imageio.encode_jpeg(bad)
 
 
 # -- resize ----------------------------------------------------------------

@@ -146,6 +146,41 @@ def test_detect_plain_matches_pallas_interpret(seed, b, h, w, k):
         np.testing.assert_allclose(sg, sr, atol=1e-5)
 
 
+@pytest.mark.parametrize("hw", [(12, 16), (60, 80), (5, 7)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_decode_variants_equal_reshape_and_jax(hw):
+    """`heatmap_decode_convt`, `heatmap_decode_planes` and
+    `heatmap_decode_auto` on the inputs of the JAX package's variant test
+    (tests/test_ops.py): bit for bit the port's reshape form, and within
+    1e-6 of the JAX variant of the same name (the softmax rounds
+    differently between the packages, as `heatmap_decode`'s parity
+    allows)."""
+    rng = np.random.default_rng(7)
+    for _ in range([(12, 16), (60, 80), (5, 7)].index(hw) + 1):
+        logits = rng.normal(0, 2, (2, *hw, 65)).astype(np.float32)
+    ref = detect.heatmap_decode(t(logits))
+    for impl, fn, jfn in (
+            ("reshape", detect.heatmap_decode, jdetect.heatmap_decode),
+            ("convt", detect.heatmap_decode_convt,
+             jdetect.heatmap_decode_convt),
+            ("planes", detect.heatmap_decode_planes,
+             jdetect.heatmap_decode_planes)):
+        got = fn(t(logits))
+        assert torch.equal(got, ref), impl
+        assert torch.equal(detect.heatmap_decode_auto(t(logits), impl=impl),
+                           ref)
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(jfn(jnp.asarray(logits))),
+                                   atol=1e-6)
+    assert torch.equal(detect.heatmap_decode_auto(t(logits), 0.5),
+                       detect.heatmap_decode(t(logits), 0.5))
+
+
+def test_decode_auto_rejects_an_unknown_impl():
+    with pytest.raises(ValueError, match="convt"):
+        detect.heatmap_decode_auto(torch.zeros(1, 2, 2, 65), impl="reshap")
+
+
 def test_detect_wrapper_on_cpu_runs_plain_and_counts_nothing():
     logits, rel = _heat_case(7, 2, 6, 10)
     kheat = detect.heatmap_decode(t(logits))
