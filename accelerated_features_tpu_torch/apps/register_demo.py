@@ -10,10 +10,11 @@ Method:    --method {XFeat, XFeat*, ORB, SIFT}
 
 The homography is posekit's LO-RANSAC (threshold 4 px, at most 700
 iterations, at least 50 inliers). The XFeat methods read and write PNG
-and JPEG files and draw without cv2; ORB, SIFT and `--webcam` are cv2's
-and exit with a message naming it when cv2 does not import. Without cv2
-the label (inliers, fps) goes to stdout instead of onto the image. The
-device defaults to the GPU and the run raises without one.
+and JPEG files and draw without cv2: the matches and the outline with
+`utils/draw` (cv2's lines, pixel for pixel), the label (inliers, fps)
+with `utils/text.put_text` (cv2 5.0.0's text). ORB, SIFT and `--webcam`
+are cv2's and exit with a message naming it when cv2 does not import.
+The device defaults to the GPU and the run raises without one.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import numpy as np
 
 from ..api import DEFAULT_WEIGHTS, XFeat, resolve_device
 from ..geometry.pose import estimate_homography
+from ..utils import draw as drawing
 from ..utils.imageio import imread, write_png
+from ..utils.text import put_text
 
 
 def _cv2():
@@ -82,66 +85,41 @@ def register(matcher, im_ref, im_tgt, min_inliers: int = 50):
     return res[0], p0, p1, res[1]
 
 
-def _line(vis: np.ndarray, a, b, color) -> None:
-    """A 1-px 8-connected line from a to b (integer pixel coordinates),
-    clipped to the image."""
-    (x0, y0), (x1, y1) = a, b
-    n = max(abs(x1 - x0), abs(y1 - y0)) + 1
-    xs = np.rint(np.linspace(x0, x1, n)).astype(np.int64)
-    ys = np.rint(np.linspace(y0, y1, n)).astype(np.int64)
-    ok = (xs >= 0) & (xs < vis.shape[1]) & (ys >= 0) & (ys < vis.shape[0])
-    vis[ys[ok], xs[ok]] = color
-
-
-def _thick_segment(vis: np.ndarray, a, b, color, thickness: int) -> None:
-    """Every pixel whose center lies within thickness / 2 of the segment
-    a-b (round caps)."""
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    r = thickness / 2
-    x0, y0 = np.floor(np.minimum(a, b) - r).astype(int)
-    x1, y1 = np.ceil(np.maximum(a, b) + r).astype(int)
-    x0, y0 = max(x0, 0), max(y0, 0)
-    x1, y1 = min(x1, vis.shape[1] - 1), min(y1, vis.shape[0] - 1)
-    if x0 > x1 or y0 > y1:
-        return
-    yy, xx = np.mgrid[y0:y1 + 1, x0:x1 + 1]
-    p = np.stack([xx, yy], -1).astype(np.float64)
-    d = b - a
-    t = np.clip(((p - a) @ d) / max(float(d @ d), 1e-12), 0.0, 1.0)
-    near = np.linalg.norm(p - (a + t[..., None] * d), axis=-1) <= r
-    vis[yy[near], xx[near]] = color
+def _project_corners(H, w: int, h: int) -> np.ndarray:
+    """The reference frame's corners mapped by H, as
+    `cv2.perspectiveTransform` maps float32 points: (x m0 + y m1 + m2)
+    times 1 / (x m6 + y m7 + m8) in float64, rounded to float32."""
+    m = np.asarray(H, np.float64).reshape(-1)
+    out = np.zeros((4, 2), np.float32)
+    for i, (x, y) in enumerate([(0.0, 0.0), (w, 0.0), (w, h), (0.0, h)]):
+        d = x * m[6] + y * m[7] + m[8]
+        if abs(d) > np.finfo(np.float32).eps:
+            d = 1.0 / d
+            out[i] = ((x * m[0] + y * m[1] + m[2]) * d,
+                      (x * m[3] + y * m[4] + m[5]) * d)
+    return out
 
 
 def draw(im_ref, im_tgt, H, p0, p1, inl, fps=None) -> np.ndarray:
     """The reference beside the target: a green 1-px line for each inlier
     match and, with H, the reference's outline projected into the target
-    in red, 3 px wide. The label (inliers, fps) is drawn by cv2 when it
-    imports, else printed."""
+    in red, 3 px wide, and the label (inliers, fps) in white, as the JAX
+    app draws them with cv2."""
     vis = np.concatenate([im_ref, im_tgt], axis=1)
     off = im_ref.shape[1]
     for a, b, ok in zip(np.asarray(p0).astype(int),
                         np.asarray(p1).astype(int), inl):
         if ok:
-            _line(vis, (a[0], a[1]), (b[0] + off, b[1]), (0, 255, 0))
+            drawing.line(vis, (a[0], a[1]), (b[0] + off, b[1]), (0, 255, 0))
     if H is not None:
         h, w = im_ref.shape[:2]
-        corners = np.array([[0, 0, 1], [w, 0, 1], [w, h, 1], [0, h, 1]],
-                           np.float64) @ np.asarray(H, np.float64).T
-        quad = (corners[:, :2] / corners[:, 2:]).astype(np.float32) \
-            .astype(np.int32)
+        quad = _project_corners(H, w, h)
         quad[:, 0] += off
-        for i in range(4):
-            _thick_segment(vis, quad[i], quad[(i + 1) % 4], (0, 0, 255), 3)
+        drawing.polylines(vis, quad.astype(np.int32), (0, 0, 255), 3)
     label = f"inliers: {int(np.sum(inl))}"
     if fps is not None:
         label += f"  fps: {fps:.1f}"
-    try:
-        import cv2
-    except ImportError:
-        print(f"[register] {label}")
-    else:
-        cv2.putText(vis, label, (10, 30), cv2.FONT_HERSHEY_SIMPLEX, 1,
-                    (255, 255, 255), 2)
+    put_text(vis, label, (10, 30), 0, 1, (255, 255, 255), 2)
     return vis
 
 

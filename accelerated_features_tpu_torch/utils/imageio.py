@@ -894,19 +894,90 @@ def _resize_area2(im: np.ndarray) -> np.ndarray:
     return (s * np.float32(0.25)).astype(im.dtype)
 
 
-def resize(im: np.ndarray, size_hw) -> np.ndarray:
+# the most `resize(..., "cubic")` differs from cv2's IPP cubic kernel when
+# upsampling values in [0, 1] (see `resize`)
+CUBIC_IPP_TOL = 24 * 2.0 ** -23
+
+
+def _cubic_taps(src: int, dst: int):
+    """cv2's INTER_CUBIC taps along one axis (`resize.cpp`): the 4 source
+    indices (clamped: the border replicates) and float32 weights of every
+    output position; f = (d + 0.5) / (dst / src) - 0.5 rounded to float32,
+    its fraction x weighted by `interpolateCubic` (A = -0.75) in float32,
+    the last weight 1 minus the other three."""
+    f32 = np.float32
+    scale = 1.0 / (dst / src)
+    fx = ((np.arange(dst) + 0.5) * scale - 0.5).astype(f32)
+    sx = np.floor(fx).astype(np.int64)
+    x = fx - sx.astype(f32)
+    a, one = f32(-0.75), f32(1)
+    x1, y = x + one, one - x
+    c0 = ((a * x1 - f32(5) * a) * x1 + f32(8) * a) * x1 - f32(4) * a
+    c1 = ((a + f32(2)) * x - (a + f32(3))) * x * x + one
+    c2 = ((a + f32(2)) * y - (a + f32(3))) * y * y + one
+    c3 = one - c0 - c1 - c2
+    idx = np.clip(sx[:, None] + np.arange(-1, 3)[None], 0, src - 1)
+    return idx, np.stack([c0, c1, c2, c3], -1)
+
+
+def _resize_cubic(im: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """cv2's INTER_CUBIC of a float32 (H, W) or (H, W, C) image, OpenCV's
+    own kernel (`resizeGeneric_` with `HResizeCubic` / `VResizeCubic`) to
+    the bit: rows first, each output the float32 sum
+    ((s0 w0 + s1 w1) + s2 w2) + s3 w3 of its taps; then columns, whose
+    sums run s0 w0 + (s1 w1 + (s2 w2 + s3 w3)) over each row's first
+    4 * (n // 4) of its n = ow * C values (OpenCV's 4-lane vector loop)
+    and left to right over the rest."""
+    if im.dtype != np.float32:
+        raise ValueError(f"cubic resize takes float32, not {im.dtype}")
+    h, w = im.shape[:2]
+    xi, xa = _cubic_taps(w, ow)
+    yi, ya = _cubic_taps(h, oh)
+    ch = (1,) * (im.ndim - 2)
+    t = im[:, xi]                                   # (h, ow, 4, [C])
+    a = xa.reshape(1, ow, 4, *ch)
+    rows = ((t[:, :, 0] * a[:, :, 0] + t[:, :, 1] * a[:, :, 1])
+            + t[:, :, 2] * a[:, :, 2]) + t[:, :, 3] * a[:, :, 3]
+    r = rows[yi]                                    # (oh, 4, ow, [C])
+    b = ya.reshape(oh, 4, 1, *ch)
+    p = [r[:, j] * b[:, j] for j in range(4)]
+    out = ((p[0] + p[1]) + p[2]) + p[3]
+    flat = out.reshape(oh, -1)
+    n4 = flat.shape[1] // 4 * 4
+    vec = (p[0] + (p[1] + (p[2] + p[3]))).reshape(oh, -1)
+    flat[:, :n4] = vec[:, :n4]
+    return flat.reshape(out.shape)
+
+
+def resize(im: np.ndarray, size_hw, interpolation: str = "linear"
+           ) -> np.ndarray:
     """`im` ((H, W) or (H, W, C), uint8 or float32) at (h, w) = `size_hw`,
     as `cv2.resize(im, (w, h))` gives it (one channel comes back 2-D) (INTER_LINEAR; INTER_AREA at an
     exact halving, as cv2 switches); unchanged when it has that size.
     uint8 runs cv2's fixed point: 11-bit weights, the horizontal pass in
     integers, the vertical pass as ((b0 (S0 >> 4)) >> 16 + (b1 (S1 >> 4))
-    >> 16 + 2) >> 2."""
+    >> 16 + 2) >> 2.
+
+    `interpolation="cubic"` is `cv2.INTER_CUBIC` of a float32 image
+    (`_resize_cubic`), equal to OpenCV's own kernel to the bit. A cv2
+    build with Intel IPP (the PyPI wheels) hands sources of at least 4 x 4
+    pixels to IPP's cubic kernel instead, whose weights and sums are
+    rounded otherwise: against it, upsampling differs by at most
+    `CUBIC_IPP_TOL` = 24 float32 epsilons (24 * 2^-23) of a value in
+    [0, 1] (measured on cv2 5.0.0's AVX-512 IPP: up to 19.5); smaller
+    sources equal it to the bit, as does cv2 with
+    `cv2.ipp.setUseIPP(False)`."""
     oh, ow = (int(x) for x in size_hw)
     h, w = im.shape[:2]
     if im.ndim == 3 and im.shape[2] == 1:
         im = im[..., 0]    # cv2 returns one channel as (h, w)
     if (h, w) == (oh, ow):
         return im
+    if interpolation == "cubic":
+        return _resize_cubic(im, oh, ow)
+    if interpolation != "linear":
+        raise ValueError(f"interpolation is 'linear' or 'cubic', not "
+                         f"{interpolation!r}")
     if im.dtype not in (np.uint8, np.float32):
         raise ValueError(f"resize takes uint8 or float32, not {im.dtype}")
     if (1.0 / (ow / w), 1.0 / (oh / h)) == (2.0, 2.0):
@@ -965,19 +1036,33 @@ def _invert3(m: np.ndarray) -> np.ndarray:
         (m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]) * d])
 
 
-def _fma32(a, b, c) -> np.ndarray:
-    """float32 a * b + c rounded once, as a fused multiply-add: the
-    product is exact in float64, the sum is taken in float64 rounded to
-    odd (TwoSum's error decides the last bit), and rounding that to
-    float32 is then the correctly rounded result."""
-    p = np.multiply(a, b, dtype=np.float64)
-    c = np.asarray(c, np.float64)
+def _fma(a, b, c) -> np.ndarray:
+    """a * b + c rounded once to a's dtype (float32 or float64), as a
+    fused multiply-add. The product must be exact in the wider type:
+    float64 holds any float32 product, numpy's long double (64 mantissa
+    bits or more) a float64 times a short constant such as a blur tap.
+    The sum is taken there rounded to odd (TwoSum's error decides the
+    last bit), and rounding that to a's dtype is then the correctly
+    rounded result."""
+    a = np.asarray(a)
+    wide = np.float64 if a.dtype == np.float32 else np.longdouble
+    nmant = np.finfo(wide).nmant
+    if wide is np.longdouble and nmant < 63:
+        raise RuntimeError("a float64 fused multiply-add needs a long "
+                           "double of at least 64 mantissa bits")
+    p = a.astype(wide) * np.asarray(b, wide)
+    c = np.asarray(c, wide)
     s = p + c
     bb = s - p
     err = (p - (s - bb)) + (c - bb)
-    fix = np.nonzero((err != 0) & ((s.view(np.int64) & 1) == 0))
-    s[fix] = np.nextafter(s[fix], np.where(err[fix] > 0, np.inf, -np.inf))
-    return s.astype(np.float32)
+    if wide is np.float64:     # the last bit of the significand
+        even = (s.view(np.int64) & 1) == 0
+    else:
+        even = np.fmod(np.frexp(s)[0] * wide(2.0) ** (nmant + 1), 2) == 0
+    fix = np.nonzero((err != 0) & even)
+    s[fix] = np.nextafter(s[fix], np.where(err[fix] > 0, wide(np.inf),
+                                           wide(-np.inf)))
+    return s.astype(a.dtype)
 
 
 def warp_perspective(im: np.ndarray, H: np.ndarray,
@@ -1012,8 +1097,8 @@ def warp_perspective(im: np.ndarray, H: np.ndarray,
     x0 = (w // _WARP_LANES) * _WARP_LANES
 
     def mapped(a, b, c):
-        out = _fma32(x, m[a], (y * m[b]).astype(f32) + m[c])
-        out[:, x0:] = _fma32(x[:, x0:], m[a], (y * m[b]).astype(f32)) + m[c]
+        out = _fma(x, m[a], (y * m[b]).astype(f32) + m[c])
+        out[:, x0:] = _fma(x[:, x0:], m[a], (y * m[b]).astype(f32)) + m[c]
         return out
     with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
         den = mapped(6, 7, 8)
@@ -1034,9 +1119,9 @@ def warp_perspective(im: np.ndarray, H: np.ndarray,
     row1 = np.clip(fy.astype(np.int64) + 2, 0, sh + 1) * (sw + 2)
     p00, p01 = pad[row0 + ix], pad[row0 + ix1]
     p10, p11 = pad[row1 + ix], pad[row1 + ix1]
-    v0 = _fma32(ax, p01 - p00, p00)
-    v1 = _fma32(ax, p11 - p10, p10)
-    out = _fma32(ay, v1 - v0, v0)
+    v0 = _fma(ax, p01 - p00, p00)
+    v1 = _fma(ax, p11 - p10, p10)
+    out = _fma(ay, v1 - v0, v0)
     if im.dtype == np.uint8:
         out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
     return out[..., 0] if ch == 1 else out

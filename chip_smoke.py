@@ -105,7 +105,16 @@ Run from the root of a checkout. In order, it
      `eval/scannet1500` on the new fixture (A, B and C counted), the
      writers' host ms, and the three A/B probes of `tools/` at reduced
      iterations;
- 15. times each kernel against its plain version, its bound and, where one
+ 15. makes the synthetic image pool with the port (`pool_phase`), in
+     subprocesses where cv2, h5py and jax cannot be imported:
+     `apps/make_synthetic_pool` in style v2 (48 + 12 images) and v1
+     (16 + 4) at 800x608, their walls an image printed beside the host's
+     CPU and the card; then the data chain from it: `render_depth_dataset
+     --textures <pool>` (every file read back), `train/lighterglue_run` on
+     the pool (2 steps; A, B, D and D's backward counted) and
+     `apps/eval_synthetic` on its holdout as MNN, XFeat* and LighterGlue
+     (A, B, C and D counted, precisions finite);
+ 16. times each kernel against its plain version, its bound and, where one
      exists, a single PyTorch call computing the same function (D's
      backward also at LighterGlue training's shape), and profiles one call
      of each matcher.
@@ -2717,8 +2726,9 @@ DATAGEN_MD = ["--scenes", "4", "--holdout_scenes", "2", "--views", "4",
               "--res", "800x608", "--seed", "0"]
 DATAGEN_SCANNET = ["--scenes", "2", "--views", "3", "--res", "640x480",
                    "--seed", "0"]
-# one generator job, run as `python -c DATAGEN_JOB ROOT JOB OUT TEXTURES`
-# with cv2, h5py and jax unimportable; prints its walls as a JSON line
+# one generator job, run as `python -c DATAGEN_JOB ROOT JOB OUT TEXTURES
+# ARGS` with cv2, h5py and jax unimportable (JOB: megadepth, scannet or
+# pool, which reads no textures); prints its walls as a JSON line
 DATAGEN_JOB = r"""
 import json, sys, time
 for m in ("cv2", "h5py", "jax"):
@@ -2727,7 +2737,8 @@ root, job, out, tex, args = sys.argv[1], sys.argv[2], sys.argv[3], \
     sys.argv[4], json.loads(sys.argv[5])
 sys.path.insert(0, root)
 from accelerated_features_tpu_torch.apps import (
-    make_eval_variants, render_depth_dataset, render_scannet_fixture)
+    make_eval_variants, make_synthetic_pool, render_depth_dataset,
+    render_scannet_fixture)
 walls = {}
 t0 = time.perf_counter()
 if job == "megadepth":
@@ -2739,12 +2750,43 @@ if job == "megadepth":
                              "--data_root", out, "--max_dim", "640",
                              "--out", out + "/pairs_640.json"])
     walls["variants_s"] = time.perf_counter() - t0
-else:
+elif job == "scannet":
     walls["pairs"] = len(render_scannet_fixture.main(
         ["--out", out, "--textures", tex] + args))
     walls["render_s"] = time.perf_counter() - t0
+else:
+    summary = make_synthetic_pool.main(["--out", out] + args)
+    walls["pool_s"] = summary["seconds"]
+    walls["images"] = summary["train"] + summary["holdout"]
 print("DATAGEN " + json.dumps(walls), flush=True)
 """
+
+
+def run_blocked_jobs(root: Path, jobs) -> dict:
+    """Each (tag, job, out, textures, args) of `jobs` as `python -c
+    DATAGEN_JOB`, all started together, each with cv2, h5py and jax
+    unimportable. A job that fails fails the smoke; returns each tag's
+    walls."""
+    import subprocess
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-c", DATAGEN_JOB, str(root), job, str(out),
+         str(tex), json.dumps(args)], stdout=subprocess.PIPE, text=True)
+        for tag, job, out, tex, args in jobs}
+    walls = {}
+    try:
+        for tag, proc in procs.items():
+            stdout, _ = proc.communicate(timeout=400)
+            check(proc.returncode == 0,
+                  f"the {tag} job failed ({proc.returncode})")
+            line = [x for x in stdout.splitlines()
+                    if x.startswith("DATAGEN ")][-1]
+            walls[tag] = json.loads(line[len("DATAGEN "):])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return walls
 
 
 def datagen_phase(root: Path, counters: dict) -> dict:
@@ -2772,7 +2814,6 @@ def datagen_phase(root: Path, counters: dict) -> dict:
     (d) The three A/B probes of `tools/` at reduced iterations. Returns
     the walls, launches and AUCs."""
     import shutil
-    import subprocess
     import tempfile
 
     import numpy as np
@@ -2807,25 +2848,9 @@ def datagen_phase(root: Path, counters: dict) -> dict:
             shutil.copy(png, tex / f"{i:03d}.png")
         md, fix = tmp / "megadepth", tmp / "scannet"
         t0 = time.perf_counter()
-        procs = {job: subprocess.Popen(
-            [sys.executable, "-c", DATAGEN_JOB, str(root), job, str(d),
-             str(tex), json.dumps(args)], stdout=subprocess.PIPE, text=True)
-            for job, d, args in (("megadepth", md, DATAGEN_MD),
-                                 ("scannet", fix, DATAGEN_SCANNET))}
-        walls = {}
-        try:
-            for job, proc in procs.items():
-                stdout, _ = proc.communicate(timeout=400)
-                check(proc.returncode == 0,
-                      f"the {job} generator failed ({proc.returncode})")
-                line = [x for x in stdout.splitlines()
-                        if x.startswith("DATAGEN ")][-1]
-                walls[job] = json.loads(line[len("DATAGEN "):])
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+        walls = run_blocked_jobs(root, [
+            ("megadepth", "megadepth", md, tex, DATAGEN_MD),
+            ("scannet", "scannet", fix, tex, DATAGEN_SCANNET)])
         gen_s = time.perf_counter() - t0
         n_views = 6 * 4
         pngs = sorted((md / "MegaDepth_v1").rglob("*.png"))
@@ -2963,6 +2988,218 @@ def datagen_phase(root: Path, counters: dict) -> dict:
             else:
                 sys.modules[m] = mod
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# the pool phase: the two styles of `apps/make_synthetic_pool` at the
+# published 800x608, the JAX default's 600 + 40 images cut to fit the smoke
+POOL_SIZES = {"v2": (48, 12), "v1": (16, 4)}   # images + holdout a style
+POOL_RENDER = ["--scenes", "1", "--holdout_scenes", "1", "--views", "4",
+               "--res", "800x608", "--seed", "0"]
+POOL_PAIRS = 12          # eval_synthetic pairs: one a holdout image
+
+
+def host_cpu() -> str:
+    """The host's CPU as the kernel reports it (x86: its model name; Arm:
+    its implementer and part numbers; else `lscpu`'s model name), the
+    vector width PyTorch's CPU kernels use, its architecture and core
+    count."""
+    import os
+    import platform
+    import subprocess
+
+    import torch
+    fields = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    if "model name" not in fields and "cpu implementer" not in fields:
+        try:
+            lscpu = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                   timeout=10).stdout
+        except (OSError, subprocess.TimeoutExpired):
+            lscpu = ""
+        for line in lscpu.splitlines():
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip().lower(), value.strip())
+    model = fields.get("model name") or (
+        f"CPU implementer {fields['cpu implementer']} part "
+        f"{fields.get('cpu part', '?')}" if "cpu implementer" in fields
+        else "unknown CPU")
+    return (f"{model} ({platform.machine()}, PyTorch CPU capability "
+            f"{torch.backends.cpu.get_cpu_capability()}), "
+            f"{os.cpu_count()} cores")
+
+
+def pool_phase(root: Path, counters: dict) -> dict:
+    """The synthetic image pool made by the port on the card's machine,
+    which has no cv2, and the data chain on the card starting from it.
+
+    (a) Two subprocesses started together, each with cv2, h5py and jax
+    unimportable (`run_blocked_jobs`): `apps/make_synthetic_pool --style
+    v2` (48 + 12 images) and `--style v1` (16 + 4), both at 800x608 and
+    seed 0; then `datagen_phase`'s megadepth job textured from the v2
+    pool: `apps/render_depth_dataset` (1 train and 1 holdout scene of 4
+    views at 800x608) and `apps/make_eval_variants` on its manifest. Each
+    style's host wall an image is printed beside the host's CPU and the
+    card's name and power limit; every pool PNG must read back
+    (`read_png`) at 608x800x3, and every rendered view and depth map at
+    its size. (b) With cv2, h5py and jax
+    unimportable in this process too: `train/lighterglue_run` on the v2
+    pool (2 steps at its defaults, batch 8 and top_k 512, with the
+    committed extractor frozen): finite losses, A, B, D and D's backward
+    launched; then `apps/eval_synthetic --images <pool>_holdout` with the
+    committed extractor, 12 pairs, as MNN (A, B, C), XFeat* (`topk_exact`,
+    C) and LighterGlue (A, B, D): precisions finite and in [0, 1]. Launch
+    counts are printed. A failure fails the smoke. Returns the walls and
+    launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerated_features_tpu_torch.apps import eval_synthetic
+    from accelerated_features_tpu_torch.apps.eval_slam import device_label
+    from accelerated_features_tpu_torch.ops.cuda import attention as D
+    from accelerated_features_tpu_torch.train import lighterglue_run as lgr
+    from accelerated_features_tpu_torch.utils.hdf5 import read_dataset
+    from accelerated_features_tpu_torch.utils.imageio import read_png
+    label = device_label(torch.device("cuda"))
+    cpu = host_cpu()
+    weights = str(root / "artifacts" / "run_md_ckpt13250.npz")
+    lg_weights = str(root / "artifacts" / "lighterglue_ft_ckpt7791.npz")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pool_"))
+    saved = {m: sys.modules.get(m) for m in ("cv2", "h5py", "jax")}
+    for m in saved:
+        sys.modules[m] = None
+    out: dict = {"launches": {}, "walls": {}}
+    t_phase = time.perf_counter()
+    try:
+        # ---- (a) the pools, and a depth dataset textured from v2 ----------
+        pools = {"v2": tmp / "pool_v2", "v1": tmp / "pool_v1"}
+        t0 = time.perf_counter()
+        res = run_blocked_jobs(root, [
+            (style, "pool", pools[style], "-",
+             ["--style", style, "--n", str(n), "--holdout", str(hold),
+              "--res", "800x608", "--seed", "0"])
+            for style, (n, hold) in POOL_SIZES.items()])
+        md = Path(str(pools["v2"]) + "_md")
+        res.update(run_blocked_jobs(root, [
+            ("render", "megadepth", md, pools["v2"], POOL_RENDER)]))
+        gen_s = time.perf_counter() - t0
+        for style, (n, hold) in POOL_SIZES.items():
+            files = sorted(pools[style].glob("*.png"))
+            held = sorted(Path(str(pools[style]) + "_holdout").glob("*.png"))
+            check(len(files) == n and len(held) == hold
+                  and res[style]["images"] == n + hold,
+                  f"the {style} pool holds {len(files)} + {len(held)} "
+                  f"images, not {n} + {hold}")
+            for f in files + held:
+                im = read_png(f)
+                check(im.shape == (608, 800, 3) and im.dtype == np.uint8,
+                      f"{f.name} of the {style} pool reads back as "
+                      f"{im.shape} {im.dtype}")
+            per = res[style]["pool_s"] / (n + hold)
+            out["walls"][f"pool_{style}_s_per_image"] = per
+            print(f"pool make_synthetic_pool --style {style} 800x608 with "
+                  f"cv2, h5py and jax unimportable: {n} + {hold} images in "
+                  f"{res[style]['pool_s']:.2f} s, {per:.4f} s an image "
+                  f"(both styles in parallel) on the host of {label}; host "
+                  f"CPU {cpu}")
+        views = sorted((md / "MegaDepth_v1").rglob("*.png"))
+        depths = sorted((md / "MegaDepth_v1").rglob("*.h5"))
+        index = sorted((md / "train_data").rglob("*.npz"))
+        check(len(views) == 8 and len(depths) == 8 and len(index) == 1
+              and (md / "rendered_pose_pairs.json").is_file()
+              and (md / "pairs_640.json").is_file(),
+              f"render_depth_dataset from the pool wrote {len(views)} "
+              f"views, {len(depths)} depths, {len(index)} indices")
+        for v, d in zip(views, depths):
+            check(read_png(v).shape == (608, 800, 3)
+                  and read_dataset(d).shape == (608, 800)
+                  and bool(np.isfinite(read_dataset(d)).all()),
+                  f"{v.name} or {d.name} does not read back at 608x800")
+        rw = res["render"]
+        out["walls"]["render_s"] = rw["render_s"]
+        print(f"pool render_depth_dataset --textures <v2 pool>: 1 + 1 scenes "
+              f"of 4 views 800x608 in {rw['render_s']:.2f} s "
+              f"({rw['train_pairs']} train pairs, {rw['eval_pairs']} eval "
+              f"pairs), make_eval_variants 640 in {rw['variants_s']:.3f} s; "
+              f"every view and depth read back; all jobs done in "
+              f"{gen_s:.2f} s on the host of {label}")
+
+        # ---- (b) the chain on the card ------------------------------------
+        for fn in counters.values():
+            fn.launches = 0
+        D.attention_backward.launches = 0
+        t0 = time.perf_counter()
+        history = lgr.main(["--synthetic_root_path", str(pools["v2"]),
+                            "--ckpt_save_path", str(tmp / "lg"),
+                            "--xfeat_weights", weights, "--n_steps", "2"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lg = {k: fn.launches for k, fn in counters.items()}
+        lg["attention_backward"] = D.attention_backward.launches
+        out["launches"]["lighterglue_train_2_steps"] = lg
+        out["walls"]["lighterglue_s"] = wall
+        print(f"pool lighterglue_run on the v2 pool (batch 8, top_k 512): "
+              f"steps {[h['step'] for h in history]}, losses "
+              f"{[h['loss'] for h in history]}, step walls s "
+              f"{[round(h['wall_s'], 4) for h in history]}, run {wall:.1f} s, "
+              f"launches {lg} on {label}")
+        check(len(history) == 2 and all(np.isfinite(h["loss"])
+                                        for h in history),
+              f"lighterglue_run on the pool: {history}")
+        check(all(lg[k] > 0 for k in ("detect_fused", "bicubic", "attention",
+                                      "attention_backward")),
+              f"a kernel of the LighterGlue step was not launched: {lg}")
+        held = str(pools["v2"]) + "_holdout"
+        rows = {}
+        for matcher, extra, kernels in (
+                ("mnn", [], ("detect_fused", "bicubic", "mnn")),
+                ("star", [], ("topk_exact", "mnn")),
+                ("lighterglue", ["--lg_weights", lg_weights,
+                                 "--lg_min_conf", "0.01"],
+                 ("detect_fused", "bicubic", "attention"))):
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            r = eval_synthetic.main(["--images", held, "--ckpt", weights,
+                                     "--pairs", str(POOL_PAIRS), "--matcher",
+                                     matcher, *extra])[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = {k: fn.launches for k, fn in counters.items()}
+            tag = f"eval_synthetic_{matcher}"
+            out["launches"][tag], out["walls"][tag + "_s"] = n, wall
+            rows[matcher] = r
+            print(f"pool eval_synthetic --matcher {matcher} on the v2 "
+                  f"holdout ({POOL_PAIRS} pairs): precision@3px "
+                  f"{r['precision@3px']:.4f}, mean matches "
+                  f"{r['mean_matches']:.1f}, MACE median "
+                  f"{r['mace_median_px']:.3f} px, {wall:.2f} s, launches "
+                  f"{n} on {label}")
+            check(r["pairs"] == POOL_PAIRS
+                  and math.isfinite(r["precision@3px"])
+                  and 0.0 <= r["precision@3px"] <= 1.0,
+                  f"eval_synthetic {matcher} on the pool: {r}")
+            check(all(n[k] > 0 for k in kernels),
+                  f"eval_synthetic {matcher}: a kernel of {kernels} was not "
+                  f"launched: {n}")
+        out["rows"] = rows
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                del sys.modules[m]
+            else:
+                sys.modules[m] = mod
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"pool phase: {out['phase_s']:.1f} s on {label}")
     return out
 
 
@@ -3710,6 +3947,10 @@ def main() -> int:
     datagen = datagen_phase(root, counters)
     print(f"phase datagen_phase done at {time.time() - t_main:.1f} s")
 
+    # ---- the synthetic pool, and the data chain on the card from it -------
+    pool = pool_phase(root, counters)
+    print(f"phase pool_phase done at {time.time() - t_main:.1f} s")
+
     # launches of one match_xfeat call, then its wall time
     for fn in counters.values():
         fn.launches = 0
@@ -4046,6 +4287,10 @@ def main() -> int:
             n = datagen[tag]["launches"].get(row["name"])
             if n:
                 row[f"launches_datagen_{tag}"] = n
+    for row in rows:  # launches in each run on the generated pool
+        for tag, counts in pool["launches"].items():
+            if counts.get(row["name"]):
+                row[f"launches_pool_{tag}"] = counts[row["name"]]
     print(f"chip_smoke done in {time.time() - t_main:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(device_label(dev))

@@ -53,6 +53,7 @@ from accelerated_features_tpu_torch.apps import (eval_synthetic,
 from accelerated_features_tpu_torch.utils.imageio import (read_frames,
                                                           read_png,
                                                           write_png)
+from accelerated_features_tpu_torch.utils.text import put_text
 
 ROOT = Path(__file__).resolve().parents[1]
 HOLDOUT = ROOT / "artifacts" / "rendered_pose_holdout"
@@ -334,14 +335,45 @@ def test_register_demo_draws_and_writes_without_cv2(tmp_path, monkeypatch,
     H = np.array([[1.0, 0.1, 5], [0.0, 0.9, 3], [0, 0, 1.0]])
     inl = np.arange(30) % 3 != 0
     vis = register_demo.draw(im0, im1, H, p0, p0 + 2, inl)
-    assert vis.shape == (96, 256, 3) and "inliers: 20" in \
-        capsys.readouterr().out
+    assert vis.shape == (96, 256, 3)
+    # the label is drawn onto the image (utils/text), not printed
+    assert "inliers" not in capsys.readouterr().out
+    label = np.zeros((96, 256), np.uint8)
+    put_text(label, "inliers: 20", (10, 30), 0, 1, 255, 2)
+    assert label.sum() > 255 * 100
+    assert (vis[label == 255] == 255).all()
     assert (vis == (0, 0, 255)).all(-1).sum() > 300       # the outline
     assert (vis == (0, 255, 0)).all(-1).sum() >= 20 * 3   # the lines
     write_png(tmp_path / "vis.png", vis)
     assert np.array_equal(read_png(tmp_path / "vis.png"), vis)
     with pytest.raises(SystemExit, match="cv2"):
         register_demo.main(["--method", "ORB", "--ref", "a", "--tgt", "b"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_register_demo_draw_equals_jax(seed):
+    """The matches and the outline equal the JAX app's cv2 drawing pixel
+    for pixel; the label (cv2 5.0.0's text) is within the text tolerance
+    of tests/test_torch_text.py: at most 8 levels, 2 % of its pixels."""
+    import cv2
+    import apps.register_demo as jreg
+    rng = np.random.default_rng(seed)
+    im0 = rng.integers(0, 256, (120, 160, 3)).astype(np.uint8)
+    im1 = rng.integers(0, 256, (120, 160, 3)).astype(np.uint8)
+    p0 = rng.uniform(-5, 165, (60, 2))
+    p1 = rng.uniform(-5, 165, (60, 2))
+    inl = rng.random(60) < 0.6
+    H = np.array([[1.0 + 0.2 * rng.random(), 0.1 * rng.random(), 40.0],
+                  [-0.05, 0.9, 10 * rng.random() - 20],
+                  [2e-4 * rng.random(), 1e-4, 1.0]])
+    want = jreg.draw(im0, im1, H, p0, p1, inl, fps=12.34)
+    got = register_demo.draw(im0, im1, H, p0, p1, inl, fps=12.34)
+    label = np.zeros(want.shape[:2], np.uint8)
+    cv2.putText(label, f"inliers: {int(inl.sum())}  fps: 12.3", (10, 30),
+                cv2.FONT_HERSHEY_SIMPLEX, 1, 255, 2)
+    d = np.abs(want.astype(np.int64) - got).max(-1)
+    assert not d[label == 0].any()
+    assert d.max() <= 8 and (d > 0).sum() <= 0.02 * (label > 0).sum()
 
 
 def test_register_demo_main_writes_what_it_drew(tmp_path, monkeypatch):
