@@ -13,12 +13,16 @@ The pool is where the offline data paths start (`render_depth_dataset
 From the same `--seed` it makes the JAX app's draws, in the same order
 and with the same calls, so the generator's state after N images is the
 same, and draws with `utils/draw` (cv2's fills, lines and blur, pixel
-for pixel), `utils/imageio.resize` (cv2's INTER_CUBIC), and
-`utils/text.put_text` (cv2 5.0.0's text). Style v1 writes the JAX app's
-PNGs pixel for pixel when cv2 runs its own resize kernel; v2's text is
-that of cv2 5.0.0 within the tolerance of `tests/test_torch_text.py`.
-The PNGs are written by `utils/imageio.write_png` (BGR arrays, as
-`cv2.imwrite` takes them), the same names into <out> and <out>_holdout.
+for pixel), `utils/imageio.resize` (cv2's INTER_CUBIC as its default
+build computes it, with Intel IPP), and `utils/text.put_text` (cv2
+5.0.0's text). Style v1 writes the JAX app's PNGs pixel for pixel as
+cv2 runs by default, and so does v2 but for its text, which is that of
+cv2 5.0.0 within the tolerance of `tests/test_torch_text.py`. The PNGs
+are written by `utils/imageio.write_png` (BGR arrays, as `cv2.imwrite`
+takes them), the same names into <out> and <out>_holdout; `pool_digests`
+hashes the pixels of a pool, which
+`tests/fixtures/synthetic_pool_v1_s0_800x608.json` holds for the JAX
+app's v1 pool of seed 0 (16 + 4 images at 800x608).
 
     python -m accelerated_features_tpu_torch.apps.make_synthetic_pool \\
         --out /tmp/synth_pool [--n 600] [--res 800x608] [--holdout 40] \\
@@ -28,14 +32,16 @@ The PNGs are written by `utils/imageio.write_png` (BGR arrays, as
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..utils import draw
-from ..utils.imageio import resize, write_png
+from ..utils.imageio import read_png, resize, write_png
 from ..utils.text import put_text
 
 
@@ -223,6 +229,18 @@ def make_image_v2(rng, h, w):
         k = int(rng.integers(1, 3)) * 2 + 1
         img = draw.gaussian_blur(img, k)
     return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def pool_digests(out: str) -> Dict[str, str]:
+    """The sha256 of the decoded pixels of every PNG of a pool written to
+    `out` and `<out>_holdout`: the (H, W, 3) uint8 BGR array (`read_png`,
+    as `cv2.imread` gives it) in C order, keyed `train/<name>` and
+    `holdout/<name>`."""
+    dirs = {"train": Path(out), "holdout": Path(str(out).rstrip("/")
+                                                + "_holdout")}
+    return {f"{part}/{f.name}": hashlib.sha256(
+                np.ascontiguousarray(read_png(f)).tobytes()).hexdigest()
+            for part, d in dirs.items() for f in sorted(d.glob("*.png"))}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:

@@ -25,7 +25,11 @@
   the frames of a directory with it; `imread_gray` reads a PNG in gray
   as cv2 does (libpng's rgb-to-gray for color), a JPEG's gray plane,
   other formats by cv2; `resize` is cv2's `INTER_LINEAR` `cv2.resize`,
-  fixed-point for uint8, in numpy.
+  fixed-point for uint8, in numpy, and its float32 `INTER_CUBIC` as
+  cv2's default build computes it: Intel IPP's arithmetic (decoded by
+  probes of cv2 5.0.0's IPP 2026.0.0 AVX-512 dispatch, whose bits it
+  holds) for sources of at least 4 x 4 pixels with 1, 3 or 4 channels,
+  OpenCV's own kernel for the rest, both to the bit.
 * `write_png`: 8-bit gray or BGR arrays as PNG files (filter 0, zlib),
   which `read_png` and `cv2.imread` read back equal.
 * `encode_jpeg` / `write_jpeg`: gray or BGR arrays as the JPEG bytes
@@ -894,9 +898,120 @@ def _resize_area2(im: np.ndarray) -> np.ndarray:
     return (s * np.float32(0.25)).astype(im.dtype)
 
 
-# the most `resize(..., "cubic")` differs from cv2's IPP cubic kernel when
-# upsampling values in [0, 1] (see `resize`)
-CUBIC_IPP_TOL = 24 * 2.0 ** -23
+# the IPP resize's interior runs in stripes of this many output rows, so
+# that a stripe's float64 temporaries stay in cache
+_RESIZE_STRIPE = 64
+
+
+def _ipp_cubic_taps(src: int, dst: int):
+    """IPP's cubic taps along one axis: the 4 source indices (clamped:
+    the border replicates) and float32 weights of every output position,
+    and the range [lo, hi) of outputs whose 4 taps all lie inside the
+    source. f = (d + 0.5) src / dst - 0.5 in float64; its fraction is
+    rounded to float32 and taken as x = (frac + 1) - 1 in float32; each
+    weight of the A = -0.75 kernel is evaluated from x in float64 and
+    rounded to float32 on its own, the outer two in powers of their
+    distance d (A d d d - 5 A d d + 8 A d - 4 A, left to right), which
+    decides the last bit of the tiny ones."""
+    f = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    s = np.floor(f)
+    one = np.float32(1)
+    x = (((f - s).astype(np.float32) + one) - one).astype(np.float64)
+    a, u = -0.75, 1 - x
+
+    def outer(d):
+        return a * d * d * d - 5 * a * d * d + 8 * a * d - 4 * a
+
+    w = np.stack([outer(x + 1), ((a + 2) * x - (a + 3)) * x * x + 1,
+                  ((a + 2) * u - (a + 3)) * u * u + 1, outer(2 - x)], -1)
+    s = s.astype(np.int64)
+    inside = np.nonzero((s >= 1) & (s <= src - 3))[0]
+    lo, hi = (int(inside[0]), int(inside[-1]) + 1) if inside.size else (0, 0)
+    idx = np.clip(s[:, None] + np.arange(-1, 3)[None], 0, src - 1)
+    return idx, w.astype(np.float32), lo, hi
+
+
+def _resize_cubic_ipp(im: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """cv2's INTER_CUBIC of a float32 (H, W) or (H, W, 3 | 4) image of at
+    least 4 x 4 pixels as cv2's default build computes it, by Intel IPP
+    (`ippiResizeCubic_32f`, replicated border), to the bit. Rows are
+    interpolated first (taps and weights from `_ipp_cubic_taps`; s the
+    taps, w their weights, p = s w rounded, fma one rounding).
+
+    Outputs whose 16 taps all lie inside the source: each source row is
+    (p0 + p1) + (p2 + p3) for one channel and fma(s1, w1, p2) +
+    fma(s0, w0, p3) for 3 or 4; the rows are then summed as fma(s0, w0,
+    p1) + fma(s2, w2, p3). Over the n values (outputs times channels) of
+    an output row that these cover, the last n % 4 take (p0 + p2) +
+    (p1 + p3) along the row (one channel) and fma(s1, w1, p0) + fma(s2,
+    w2, p3) across the rows.
+
+    Outputs with a clamped tap in either axis: each of the four source
+    rows is a chain of fused multiply-adds over its taps, fma(s3, w3,
+    fma(s2, w2, fma(s0, w0, p1))) for the middle two rows and fma(s3, w3,
+    fma(s2, w2, fma(s1, w1, p0))) for the first and last; the rows are
+    summed as (p0 + p2) + (p1 + p3)."""
+    h, w = im.shape[:2]
+    c = im.shape[2] if im.ndim == 3 else 1
+    xi, xa, x0, x1 = _ipp_cubic_taps(w, ow)
+    yi, ya, y0, y1 = _ipp_cubic_taps(h, oh)
+    ch = (1,) * (im.ndim - 2)
+    out = np.empty((oh, ow) + im.shape[2:], np.float32)
+
+    def row_taps(rows, cols):
+        """the 4 taps along x of outputs `cols` on source `rows`, and
+        their weights"""
+        src = im[rows]
+        return ([src[:, xi[cols, k]] for k in range(4)],
+                [xa[cols, k].reshape(1, -1, *ch) for k in range(4)])
+
+    def border(ys, xs):
+        """the outputs of rows `ys` and columns `xs` (index arrays), each
+        with a clamped tap"""
+        if not (ys.size and xs.size):
+            return
+        rows = np.unique(yi[ys])
+        s, a = row_taps(rows, xs)
+        mid = _fma(s[3], a[3], _fma(s[2], a[2], _fma(s[0], a[0], s[1] * a[1])))
+        end = _fma(s[3], a[3], _fma(s[2], a[2], _fma(s[1], a[1], s[0] * a[0])))
+        j = np.searchsorted(rows, yi[ys])
+        b = ya[ys].reshape(-1, 4, 1, *ch)
+        q = [(end if k in (0, 3) else mid)[j[:, k]] * b[:, k]
+             for k in range(4)]
+        out[np.ix_(ys, xs)] = (q[0] + q[2]) + (q[1] + q[3])
+
+    border(np.r_[0:y0, y1:oh], np.arange(ow))   # above and below
+    border(np.arange(y0, y1), np.r_[0:x0, x1:ow])  # left and right
+    if y0 >= y1 or x0 >= x1:
+        return out
+    # the interior: its source rows along x, then stripes of output rows;
+    # the last t values of each row take the tail's sums
+    t = (x1 - x0) * c % 4
+    r0 = int(yi[y0, 0])
+    s, a = row_taps(slice(r0, int(yi[y1 - 1, 3]) + 1), slice(x0, x1))
+    p = [s[k] * a[k] for k in range(4)]
+    if c == 1:
+        r = (p[0] + p[1]) + (p[2] + p[3])
+        if t:
+            r[:, -t:] = ((p[0] + p[2]) + (p[1] + p[3]))[:, -t:]
+    else:
+        r = _fma(s[1], a[1], p[2]) + _fma(s[0], a[0], p[3])
+    k = -(-t // c)      # the pixels that hold the tail
+    for lo in range(y0, y1, _RESIZE_STRIPE):
+        hi = min(lo + _RESIZE_STRIPE, y1)
+        rr = [r[yi[lo:hi, j] - r0] for j in range(4)]
+        b = [ya[lo:hi, j].reshape(-1, 1, *ch) for j in range(4)]
+        q3 = rr[3] * b[3]
+        np.add(_fma(rr[0], b[0], rr[1] * b[1]), _fma(rr[2], b[2], q3),
+               out=out[lo:hi, x0:x1])
+        if t:
+            tv = (_fma(rr[1][:, -k:], b[1], rr[0][:, -k:] * b[0])
+                  + _fma(rr[2][:, -k:], b[2], q3[:, -k:]))
+            blk = out[lo:hi, x1 - k:x1]
+            flat = blk.reshape(hi - lo, -1)
+            flat[:, -t:] = tv.reshape(hi - lo, -1)[:, -t:]
+            blk[...] = flat.reshape(blk.shape)
+    return out
 
 
 def _cubic_taps(src: int, dst: int):
@@ -928,8 +1043,6 @@ def _resize_cubic(im: np.ndarray, oh: int, ow: int) -> np.ndarray:
     sums run s0 w0 + (s1 w1 + (s2 w2 + s3 w3)) over each row's first
     4 * (n // 4) of its n = ow * C values (OpenCV's 4-lane vector loop)
     and left to right over the rest."""
-    if im.dtype != np.float32:
-        raise ValueError(f"cubic resize takes float32, not {im.dtype}")
     h, w = im.shape[:2]
     xi, xa = _cubic_taps(w, ow)
     yi, ya = _cubic_taps(h, oh)
@@ -958,15 +1071,14 @@ def resize(im: np.ndarray, size_hw, interpolation: str = "linear"
     integers, the vertical pass as ((b0 (S0 >> 4)) >> 16 + (b1 (S1 >> 4))
     >> 16 + 2) >> 2.
 
-    `interpolation="cubic"` is `cv2.INTER_CUBIC` of a float32 image
-    (`_resize_cubic`), equal to OpenCV's own kernel to the bit. A cv2
-    build with Intel IPP (the PyPI wheels) hands sources of at least 4 x 4
-    pixels to IPP's cubic kernel instead, whose weights and sums are
-    rounded otherwise: against it, upsampling differs by at most
-    `CUBIC_IPP_TOL` = 24 float32 epsilons (24 * 2^-23) of a value in
-    [0, 1] (measured on cv2 5.0.0's AVX-512 IPP: up to 19.5); smaller
-    sources equal it to the bit, as does cv2 with
-    `cv2.ipp.setUseIPP(False)`."""
+    `interpolation="cubic"` is `cv2.INTER_CUBIC` of a float32 image as
+    cv2's default build (the PyPI wheels, with Intel IPP) computes it, to
+    the bit, upsampling and downsampling alike. Like cv2, it hands
+    sources of at least 4 x 4 pixels with 1, 3 or 4 channels to IPP's
+    arithmetic (`_resize_cubic_ipp`) and every other source to OpenCV's
+    own kernel (`_resize_cubic`), which is also what cv2 gives with
+    `cv2.ipp.setUseIPP(False)`. IPP's bits depend on its CPU dispatch;
+    those held are cv2 5.0.0's IPP 2026.0.0 AVX-512 (k0) ones."""
     oh, ow = (int(x) for x in size_hw)
     h, w = im.shape[:2]
     if im.ndim == 3 and im.shape[2] == 1:
@@ -974,6 +1086,10 @@ def resize(im: np.ndarray, size_hw, interpolation: str = "linear"
     if (h, w) == (oh, ow):
         return im
     if interpolation == "cubic":
+        if im.dtype != np.float32:
+            raise ValueError(f"cubic resize takes float32, not {im.dtype}")
+        if min(h, w) >= 4 and (im.ndim == 2 or im.shape[2] in (3, 4)):
+            return _resize_cubic_ipp(im, oh, ow)
         return _resize_cubic(im, oh, ow)
     if interpolation != "linear":
         raise ValueError(f"interpolation is 'linear' or 'cubic', not "
@@ -1036,6 +1152,9 @@ def _invert3(m: np.ndarray) -> np.ndarray:
         (m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]) * d])
 
 
+_F32_TINY = np.float32(2.0 ** -126)    # float32's smallest normal
+
+
 def _fma(a, b, c) -> np.ndarray:
     """a * b + c rounded once to a's dtype (float32 or float64), as a
     fused multiply-add. The product must be exact in the wider type:
@@ -1043,8 +1162,33 @@ def _fma(a, b, c) -> np.ndarray:
     bits or more) a float64 times a short constant such as a blur tap.
     The sum is taken there rounded to odd (TwoSum's error decides the
     last bit), and rounding that to a's dtype is then the correctly
-    rounded result."""
+    rounded result.
+
+    For float32 the plain float64 sum, rounded to float32, is already
+    that result unless it lies on a float32 halfway point (float64's own
+    rounding may then have decided the tie) or below float32's normal
+    range; only those elements take the round-to-odd path."""
     a = np.asarray(a)
+    if a.dtype != np.float32:
+        return _fma_odd(a, b, c)
+    s = np.multiply(a, b, dtype=np.float64)
+    if np.broadcast_shapes(s.shape, np.shape(c)) == s.shape:
+        np.add(s, c, out=s)
+    else:
+        s = s + c
+    out = s.astype(np.float32)
+    tie = (s.view(np.int64) & ((1 << 29) - 1)) == 1 << 28
+    mag = np.abs(out)
+    if mag.min(initial=np.inf) <= _F32_TINY:
+        tie |= (mag <= _F32_TINY) & (s != 0)
+    if tie.any():
+        a, b, c = np.broadcast_arrays(a, b, c)
+        out[tie] = _fma_odd(a[tie], b[tie], c[tie])
+    return out
+
+
+def _fma_odd(a, b, c) -> np.ndarray:
+    """`_fma` by a sum rounded to odd in the wider type."""
     wide = np.float64 if a.dtype == np.float32 else np.longdouble
     nmant = np.finfo(wide).nmant
     if wide is np.longdouble and nmant < 63:

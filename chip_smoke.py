@@ -109,7 +109,9 @@ Run from the root of a checkout. In order, it
      subprocesses where cv2, h5py and jax cannot be imported:
      `apps/make_synthetic_pool` in style v2 (48 + 12 images) and v1
      (16 + 4) at 800x608, their walls an image printed beside the host's
-     CPU and the card; then the data chain from it: `render_depth_dataset
+     CPU and the card, and the v1 pool's pixels held to the committed
+     sha256 of the JAX app's as cv2 runs by default (20 of 20 images
+     equal); then the data chain from it: `render_depth_dataset
      --textures <pool>` (every file read back), `train/lighterglue_run` on
      the pool (2 steps; A, B, D and D's backward counted) and
      `apps/eval_synthetic` on its holdout as MNN, XFeat* and LighterGlue
@@ -2997,6 +2999,9 @@ POOL_SIZES = {"v2": (48, 12), "v1": (16, 4)}   # images + holdout a style
 POOL_RENDER = ["--scenes", "1", "--holdout_scenes", "1", "--views", "4",
                "--res", "800x608", "--seed", "0"]
 POOL_PAIRS = 12          # eval_synthetic pairs: one a holdout image
+# the pixels' sha256 of the JAX app's v1 pool of seed 0 at 800x608
+# (16 + 4 images, cv2's default IPP resize), which the port's must equal
+POOL_V1_DIGESTS = "tests/fixtures/synthetic_pool_v1_s0_800x608.json"
 
 
 def host_cpu() -> str:
@@ -3047,7 +3052,10 @@ def pool_phase(root: Path, counters: dict) -> dict:
     style's host wall an image is printed beside the host's CPU and the
     card's name and power limit; every pool PNG must read back
     (`read_png`) at 608x800x3, and every rendered view and depth map at
-    its size. (b) With cv2, h5py and jax
+    its size. The v1 pool's pixels must equal the JAX app's as cv2 runs
+    by default (`POOL_V1_DIGESTS`, their sha256): the count of equal
+    images is printed beside the host's CPU and the card. (b) With cv2,
+    h5py and jax
     unimportable in this process too: `train/lighterglue_run` on the v2
     pool (2 steps at its defaults, batch 8 and top_k 512, with the
     committed extractor frozen): finite losses, A, B, D and D's backward
@@ -3062,7 +3070,8 @@ def pool_phase(root: Path, counters: dict) -> dict:
     import numpy as np
     import torch
 
-    from accelerated_features_tpu_torch.apps import eval_synthetic
+    from accelerated_features_tpu_torch.apps import (eval_synthetic,
+                                                     make_synthetic_pool)
     from accelerated_features_tpu_torch.apps.eval_slam import device_label
     from accelerated_features_tpu_torch.ops.cuda import attention as D
     from accelerated_features_tpu_torch.train import lighterglue_run as lgr
@@ -3110,6 +3119,18 @@ def pool_phase(root: Path, counters: dict) -> dict:
                   f"{res[style]['pool_s']:.2f} s, {per:.4f} s an image "
                   f"(both styles in parallel) on the host of {label}; host "
                   f"CPU {cpu}")
+        # the v1 pool against the JAX app's as cv2 runs it by default
+        held = json.loads((root / POOL_V1_DIGESTS).read_text())
+        got = make_synthetic_pool.pool_digests(str(pools["v1"]))
+        equal = sum(got.get(k) == v for k, v in held["images"].items())
+        out["v1_images_equal_to_digests"] = equal
+        print(f"pool v1: {equal} of {len(held['images'])} images equal to "
+              f"{POOL_V1_DIGESTS} (the JAX app's, cv2 "
+              f"{held['cv2']} with IPP {held['ipp']!r}) on the host of "
+              f"{label}; host CPU {cpu}")
+        check(equal == len(held["images"]) == len(got) == 20,
+              f"the port's v1 pool has {equal} of {len(held['images'])} "
+              f"images equal to the committed digests ({len(got)} made)")
         views = sorted((md / "MegaDepth_v1").rglob("*.png"))
         depths = sorted((md / "MegaDepth_v1").rglob("*.h5"))
         index = sorted((md / "train_data").rglob("*.npz"))

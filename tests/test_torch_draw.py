@@ -8,11 +8,12 @@ line up polygon points, size ellipses at `EllipseEx`'s step thresholds
 (3, 10 and 15 px) and put thick lines across the borders; the two images
 must be equal. `gaussian_blur` (k = 3, 5) must equal cv2's bit for bit.
 
-The cubic resize equals cv2's own kernel to the bit (cv2 with
-`setUseIPP(False)`, and cv2 with IPP for sources under 4 px a side, which
-IPP does not take); against IPP's kernel, which the PyPI cv2 runs for
-larger sources, an upsampled value in [0, 1] is within 2^-18 (the bound in
-`resize`'s docstring).
+The cubic resize equals cv2's default to the bit, upsampling and
+downsampling, in 1, 3 and 4 channels: IPP's kernel for sources of at least
+4 x 4 px (as cv2 5.0.0's IPP 2026.0.0 AVX-512 dispatch computes it; another
+dispatch fails the test with its name), OpenCV's own kernel below that.
+The own kernel (`imageio._resize_cubic`, which `resize` also takes for 2
+channels) equals cv2 with `setUseIPP(False)` on every grid.
 """
 
 import cv2
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 
 from accelerated_features_tpu_torch.utils import draw
-from accelerated_features_tpu_torch.utils.imageio import CUBIC_IPP_TOL, resize
+from accelerated_features_tpu_torch.utils.imageio import _resize_cubic, resize
 
 H, W = 72, 96
 DTYPES = ["float32", "float64", "mask"]
@@ -178,34 +179,54 @@ def test_gaussian_blur_equals_cv2(dtype, k):
 GRIDS = [(2, 2), (2, 3), (3, 7), (4, 6), (9, 12), (18, 24), (19, 25),
          (38, 50), (76, 100), (152, 200)]
 OUTS = [(608, 800), (72, 96), (37, 53)]
+# the IPP dispatch whose bits `resize` holds (`cv2.ipp.getIppVersion()`)
+IPP_HELD = "ippIP AVX-512F/CD/BW/DQ/VL (k0) 2026.0.0"
+# sources the IPP test adds to GRIDS, with their own outputs; at
+# (17, 201) -> (372, 199) two output rows take a weight of ~1e-6, whose
+# last bit depends on how the kernel is evaluated
+IPP_EXTRA = {(608, 800): [(1216, 1600)], (100, 100): [(100, 150)],
+             (17, 201): [(372, 199)]}
 
 
 @pytest.mark.parametrize("grid", GRIDS)
 def test_cubic_resize_equals_cv2_own_kernel(ipp_off, grid):
+    """OpenCV's own kernel: `resize` takes it for sources under 4 px a
+    side, `_resize_cubic` is it for every source."""
     rng = np.random.default_rng(80)
     for c in (0, 3):
         g = rng.random(grid + ((c,) if c else ()), dtype=np.float32)
         for out in OUTS + [(grid[0] // 2 + 1, grid[1] // 2 + 1)]:
             ref = cv2.resize(g, out[::-1], interpolation=cv2.INTER_CUBIC)
-            got = resize(g, out, "cubic")
-            assert got.dtype == np.float32 and got.shape == ref.shape
-            assert np.array_equal(ref, got), (grid, c, out)
-
-
-@pytest.mark.parametrize("grid", GRIDS)
-def test_cubic_resize_against_cv2_with_ipp(grid):
-    """cv2's default (IPP for sources of at least 4 x 4 px): equal below
-    that, within `CUBIC_IPP_TOL` above it when upsampling."""
-    rng = np.random.default_rng(81)
-    for out in OUTS:
-        if out[0] <= grid[0] or out[1] <= grid[1]:
-            continue
-        for _ in range(3):
-            g = rng.random(grid, dtype=np.float32)
-            ref = cv2.resize(g, out[::-1], interpolation=cv2.INTER_CUBIC)
-            got = resize(g, out, "cubic")
+            own = _resize_cubic(g, *out)
+            assert own.dtype == np.float32 and own.shape == ref.shape
+            assert np.array_equal(ref, own), (grid, c, out)
             if min(grid) < 4:
-                assert np.array_equal(ref, got), (grid, out)
-            else:
-                err = np.abs(ref.astype(np.float64) - got).max()
-                assert err <= CUBIC_IPP_TOL, (grid, out, err)
+                assert np.array_equal(ref, resize(g, out, "cubic")), \
+                    (grid, c, out)
+
+
+@pytest.mark.parametrize("grid", GRIDS + list(IPP_EXTRA))
+def test_cubic_resize_against_cv2_with_ipp(grid):
+    """cv2's default, IPP for sources of at least 4 x 4 px: equal to the
+    bit, upsampling and downsampling, in 1, 3 and 4 channels (2 channels:
+    OpenCV's own kernel, which cv2 takes then), on random images and on
+    images that are zero but every 5th pixel of every 5th row, where an
+    output is one tap times its two weights and shows their every bit."""
+    version = cv2.ipp.getIppVersion()
+    assert cv2.ipp.useIPP() and version.startswith(IPP_HELD), (
+        f"cv2 {cv2.__version__} runs IPP {version!r} "
+        f"(on: {cv2.ipp.useIPP()}); resize holds the bits of {IPP_HELD!r}")
+    rng = np.random.default_rng(81)
+    outs = IPP_EXTRA.get(grid, OUTS + [(23, 31),
+                                       (grid[0] // 2 + 1, grid[1] // 2 + 1)])
+    for c in (0, 3, 4, 2):
+        for out in outs:
+            g = rng.random(grid + ((c,) if c else ()), dtype=np.float32)
+            sparse = np.zeros_like(g)
+            sparse[::5, ::5] = g[::5, ::5] - np.float32(0.5)
+            for im in (g, sparse):
+                ref = cv2.resize(im, out[::-1],
+                                 interpolation=cv2.INTER_CUBIC)
+                got = resize(im, out, "cubic")
+                assert got.dtype == np.float32 and got.shape == ref.shape
+                assert np.array_equal(ref, got), (grid, c, out)
