@@ -16,7 +16,10 @@ final assignment through the masks; nothing is gathered. Depth early exit
 stays off, so `token_confidence` weights are carried but never read.
 
 On CUDA tensors every attention runs kernel D (`ops/cuda/attention.py`),
-at every size; on CPU tensors its plain version. The parameter tree keeps
+at every size; on CPU tensors its plain version. Under a profiler,
+`lighterglue_forward` is the range `xfeat.lighterglue`, holding
+`.embed`, `.self` (two a layer), `.cross`, `.prune` (a layer, when
+pruning) and `.assign` (`utils.profiling.span`). The parameter tree keeps
 the JAX package's nesting with torch layouts (`models.params.
 load_lighterglue_params`): linear weights (out, in), `posenc_wr` (2, D/2).
 """
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda.attention import NEG, flash_attention
 from ..ops.precision import full_fp32_matmuls
+from ..utils.profiling import span
 from .params import (is_state_dict, is_torch_file, load_lighterglue_params,
                      read_torch_file)
 
@@ -338,55 +342,64 @@ def lighterglue_forward(params: Dict[str, Any], kpts0: torch.Tensor,
     prune_margin1 (B,N): how close each point's matchability came to the
     pruning threshold while the point was still kept (inf without
     pruning), which tells where two float32 runs may decide differently."""
-    b, m, _ = kpts0.shape
-    n = kpts1.shape[1]
-    dev = kpts0.device
-    if mask0 is None:
-        mask0 = torch.ones((b, m), dtype=torch.bool, device=dev)
-    if mask1 is None:
-        mask1 = torch.ones((b, n), dtype=torch.bool, device=dev)
+    with span("xfeat.lighterglue"):
+        b, m, _ = kpts0.shape
+        n = kpts1.shape[1]
+        dev = kpts0.device
+        if mask0 is None:
+            mask0 = torch.ones((b, m), dtype=torch.bool, device=dev)
+        if mask1 is None:
+            mask1 = torch.ones((b, n), dtype=torch.bool, device=dev)
 
-    x0 = _apply(params["input_proj"], descs0.float())
-    x1 = _apply(params["input_proj"], descs1.float())
-    cos0, sin0 = rotary_encoding(normalize_keypoints(kpts0.float(), size0),
-                                 params["posenc_wr"])
-    cos1, sin1 = rotary_encoding(normalize_keypoints(kpts1.float(), size1),
-                                 params["posenc_wr"])
+        with span("xfeat.lighterglue.embed"):
+            x0 = _apply(params["input_proj"], descs0.float())
+            x1 = _apply(params["input_proj"], descs1.float())
+            cos0, sin0 = rotary_encoding(
+                normalize_keypoints(kpts0.float(), size0), params["posenc_wr"])
+            cos1, sin1 = rotary_encoding(
+                normalize_keypoints(kpts1.float(), size1), params["posenc_wr"])
 
-    do_prune = width_confidence > 0 and max(m, n) > pruning_min_kpts
-    keep = [mask0, mask1]
-    margin = [torch.full((b, m), float("inf"), device=dev),
-              torch.full((b, n), float("inf"), device=dev)]
-    n_layers = len(params["layers"])
-    for i, layer in enumerate(params["layers"]):
-        x0 = _self_block(layer["self"], x0, cos0, sin0, keep[0], heads)
-        x1 = _self_block(layer["self"], x1, cos1, sin1, keep[1], heads)
-        x0, x1 = _cross_block(layer["cross"], x0, x1, keep[0], keep[1], heads)
-        if do_prune and i < n_layers - 1:
-            for side, x in enumerate((x0, x1)):
-                over = get_matchability(params["assignments"][i], x) \
-                    - (1.0 - width_confidence)
-                margin[side] = torch.where(
-                    keep[side], torch.minimum(margin[side], over.abs()),
-                    margin[side])
-                keep[side] = keep[side] & (over > 0)
-    keep0, keep1 = keep
+        do_prune = width_confidence > 0 and max(m, n) > pruning_min_kpts
+        keep = [mask0, mask1]
+        margin = [torch.full((b, m), float("inf"), device=dev),
+                  torch.full((b, n), float("inf"), device=dev)]
+        n_layers = len(params["layers"])
+        for i, layer in enumerate(params["layers"]):
+            with span("xfeat.lighterglue.self"):
+                x0 = _self_block(layer["self"], x0, cos0, sin0, keep[0], heads)
+            with span("xfeat.lighterglue.self"):
+                x1 = _self_block(layer["self"], x1, cos1, sin1, keep[1], heads)
+            with span("xfeat.lighterglue.cross"):
+                x0, x1 = _cross_block(layer["cross"], x0, x1, keep[0], keep[1],
+                                      heads)
+            if do_prune and i < n_layers - 1:
+                with span("xfeat.lighterglue.prune"):
+                    for side, x in enumerate((x0, x1)):
+                        over = get_matchability(params["assignments"][i], x) \
+                            - (1.0 - width_confidence)
+                        margin[side] = torch.where(
+                            keep[side],
+                            torch.minimum(margin[side], over.abs()),
+                            margin[side])
+                        keep[side] = keep[side] & (over > 0)
+        keep0, keep1 = keep
 
-    asg = params["assignments"][-1]
-    dim = x0.shape[-1]
-    md0 = _apply(asg["final_proj"], x0) / dim ** 0.25
-    md1 = _apply(asg["final_proj"], x1) / dim ** 0.25
-    sim = torch.matmul(md0, md1.transpose(1, 2))
-    z0 = _apply(asg["matchability"], x0)[..., 0]
-    z1 = _apply(asg["matchability"], x1)[..., 0]
-    scores = sigmoid_log_double_softmax(sim, z0, z1, keep0, keep1)
-    m0, ms0 = filter_matches_from_scores(scores, m, n)
-    if do_prune:
-        m0 = torch.where(keep0, m0, -1)
-        ms0 = torch.where(keep0, ms0, 0.0)
-    return {"log_assignment": scores, "matches0": m0, "mscores0": ms0,
-            "keep0": keep0, "keep1": keep1,
-            "prune_margin0": margin[0], "prune_margin1": margin[1]}
+        with span("xfeat.lighterglue.assign"):
+            asg = params["assignments"][-1]
+            dim = x0.shape[-1]
+            md0 = _apply(asg["final_proj"], x0) / dim ** 0.25
+            md1 = _apply(asg["final_proj"], x1) / dim ** 0.25
+            sim = torch.matmul(md0, md1.transpose(1, 2))
+            z0 = _apply(asg["matchability"], x0)[..., 0]
+            z1 = _apply(asg["matchability"], x1)[..., 0]
+            scores = sigmoid_log_double_softmax(sim, z0, z1, keep0, keep1)
+            m0, ms0 = filter_matches_from_scores(scores, m, n)
+            if do_prune:
+                m0 = torch.where(keep0, m0, -1)
+                ms0 = torch.where(keep0, ms0, 0.0)
+        return {"log_assignment": scores, "matches0": m0, "mscores0": ms0,
+                "keep0": keep0, "keep1": keep1,
+                "prune_margin0": margin[0], "prune_margin1": margin[1]}
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 Counterpart of the TPU kernel `_mnn_kernel` in
 `accelerated_features_tpu/ops/pallas/mnn.py`. `batch_mnn_match_fused`
 launches the kernel on CUDA tensors; on CPU tensors it runs the plain
-version, `ops.matching.batch_mnn_match`. `batch_mnn_match_fused.launches`
-counts kernel launches.
+version, `ops.matching.batch_mnn_match`; either way, under a profiler, it
+is the range `xfeat.mnn`. `batch_mnn_match_fused.launches` counts kernel
+launches.
 
 The kernel computes the similarities on the H100's tensor cores at float32
 grade (3xTF32: every float32 operand split into a TF32 head and tail, three
@@ -23,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils.profiling import span
 from ..matching import batch_mnn_match
 from . import _build
 
@@ -35,39 +37,41 @@ def batch_mnn_match_fused(d1: torch.Tensor, d2: torch.Tensor,
     """(B,K1,64), (B,K2,64) f32, optional (B,K1) / (B,K2) bool masks ->
     idx1 (B,K1) int64, mask (B,K1) bool; same semantics as
     `batch_mnn_match` (`min_cossim` <= 0 disables the gate)."""
-    if d1.device.type == "cpu":
-        return batch_mnn_match(d1, d2, valid1, valid2, min_cossim)
-    for t, name in ((d1, "d1"), (d2, "d2")):
-        _build.check_cuda(t, name, torch.float32, 3)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    b, k1, c = d1.shape
-    k2 = d2.shape[1]
-    if c != 64 or d2.shape[0] != b or d2.shape[2] != c or k1 == 0 or k2 == 0:
-        raise ValueError(f"need non-empty (B,K1,64) and (B,K2,64), got "
-                         f"{tuple(d1.shape)} and {tuple(d2.shape)}")
-    for v, name, k in ((valid1, "valid1", k1), (valid2, "valid2", k2)):
-        if v is not None:
-            _build.check_cuda(v, name, torch.bool, 2)
-            if tuple(v.shape) != (b, k):
-                raise ValueError(f"{name} must be ({b}, {k}), got "
-                                 f"{tuple(v.shape)}")
-    _build.refuse_grad("kernel C (mnn)", d1, d2)
-    dev = d1.device
-    keys = torch.empty(b * (k1 + k2), dtype=torch.int64, device=dev)
-    idx1 = torch.empty((b, k1), dtype=torch.int64, device=dev)
-    mask = torch.empty((b, k1), dtype=torch.bool, device=dev)
-    null = ctypes.c_void_p(None)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        _build.launch(lib, "mnn_match", _build.ptr(d1), _build.ptr(d2),
-                      null if valid1 is None else _build.ptr(valid1),
-                      null if valid2 is None else _build.ptr(valid2),
-                      _build.ptr(keys), _build.ptr(idx1), _build.ptr(mask),
-                      b, k1, k2, ctypes.c_float(min_cossim),
-                      _build.stream(d1))
-    batch_mnn_match_fused.launches += 1
-    return idx1, mask
+    with span("xfeat.mnn"):
+        if d1.device.type == "cpu":
+            return batch_mnn_match(d1, d2, valid1, valid2, min_cossim)
+        for t, name in ((d1, "d1"), (d2, "d2")):
+            _build.check_cuda(t, name, torch.float32, 3)
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+        b, k1, c = d1.shape
+        k2 = d2.shape[1]
+        if c != 64 or d2.shape[0] != b or d2.shape[2] != c or k1 == 0 \
+                or k2 == 0:
+            raise ValueError(f"need non-empty (B,K1,64) and (B,K2,64), got "
+                             f"{tuple(d1.shape)} and {tuple(d2.shape)}")
+        for v, name, k in ((valid1, "valid1", k1), (valid2, "valid2", k2)):
+            if v is not None:
+                _build.check_cuda(v, name, torch.bool, 2)
+                if tuple(v.shape) != (b, k):
+                    raise ValueError(f"{name} must be ({b}, {k}), got "
+                                     f"{tuple(v.shape)}")
+        _build.refuse_grad("kernel C (mnn)", d1, d2)
+        dev = d1.device
+        keys = torch.empty(b * (k1 + k2), dtype=torch.int64, device=dev)
+        idx1 = torch.empty((b, k1), dtype=torch.int64, device=dev)
+        mask = torch.empty((b, k1), dtype=torch.bool, device=dev)
+        null = ctypes.c_void_p(None)
+        lib = _lib()
+        with torch.cuda.device(dev):
+            _build.launch(lib, "mnn_match", _build.ptr(d1), _build.ptr(d2),
+                          null if valid1 is None else _build.ptr(valid1),
+                          null if valid2 is None else _build.ptr(valid2),
+                          _build.ptr(keys), _build.ptr(idx1), _build.ptr(mask),
+                          b, k1, k2, ctypes.c_float(min_cossim),
+                          _build.stream(d1))
+        batch_mnn_match_fused.launches += 1
+        return idx1, mask
 
 
 batch_mnn_match_fused.launches = 0

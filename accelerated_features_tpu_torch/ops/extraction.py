@@ -6,7 +6,9 @@ the fused detect kernel and the descriptor sampling runs the bicubic
 kernel; on CPU tensors both run their plain torch versions. The sparse
 path L2-normalizes descriptors twice, per pixel before sampling and per
 keypoint after it; both normalizations belong to the sampling step
-(`sample_descriptors` takes the raw map).
+(`sample_descriptors` takes the raw map). Under a profiler its stages are
+the ranges `xfeat.extract.backbone`, `.decode`, `.select` and `.sample`
+inside `xfeat.extract` (`utils.profiling.span`).
 
 Semi-dense (`extract_dense`, `extract_dualscale`,
 `detect_and_compute_dense`): the /8 cells with the highest reliability and
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models.backbone import xfeat_forward
+from ..utils.profiling import span
 from .cuda.bicubic import sample_descriptors
 from .cuda.detect_fused import topk_exact, topk_keypoints_fused
 from .detect import dense_topk, heatmap_decode
@@ -46,20 +49,25 @@ def detect_and_compute(params: Dict[str, Any], images: torch.Tensor,
     cast to float32, so selection, sampling and matching see float32. (In
     bfloat16 the JAX package samples descriptors from a bfloat16 map; here
     the map is the float32 cast of the backbone's output.)"""
-    x, rh, rw = preprocess_image(to_unit_float(images))
-    H, W = x.shape[1], x.shape[2]
-
-    feats, logits, heat = xfeat_forward(params, x, compute_dtype=compute_dtype,
-                                        fused_stem=fused_stem)
-    kheat = heatmap_decode(logits.float())                       # (B, H, W)
-    kpts_i, scores = topk_keypoints_fused(
-        kheat, heat[..., 0].float().contiguous(), top_k, detection_threshold)
-    kpts_f = kpts_i.float()
-    descs = sample_descriptors(feats.float(), kpts_f, (H, W))
-    kpts = kpts_f * torch.tensor([rw, rh], dtype=torch.float32,
-                                 device=kpts_f.device)
-    return {"keypoints": kpts, "scores": scores, "descriptors": descs,
-            "valid": scores > 0}
+    with span("xfeat.extract"):
+        with span("xfeat.extract.backbone"):
+            x, rh, rw = preprocess_image(to_unit_float(images))
+            H, W = x.shape[1], x.shape[2]
+            feats, logits, heat = xfeat_forward(
+                params, x, compute_dtype=compute_dtype, fused_stem=fused_stem)
+        with span("xfeat.extract.decode"):
+            kheat = heatmap_decode(logits.float())               # (B, H, W)
+        with span("xfeat.extract.select"):
+            kpts_i, scores = topk_keypoints_fused(
+                kheat, heat[..., 0].float().contiguous(), top_k,
+                detection_threshold)
+        with span("xfeat.extract.sample"):
+            kpts_f = kpts_i.float()
+            descs = sample_descriptors(feats.float(), kpts_f, (H, W))
+            kpts = kpts_f * torch.tensor([rw, rh], dtype=torch.float32,
+                                         device=kpts_f.device)
+        return {"keypoints": kpts, "scores": scores, "descriptors": descs,
+                "valid": scores > 0}
 
 
 def extract_dense(params: Dict[str, Any], images: torch.Tensor, top_k: int,

@@ -3,6 +3,8 @@
 
 - `device_trace`: a `torch.profiler` trace (CPU and CUDA activities),
   written into a directory as a Chrome trace.
+- `span`: a named range of the program's own stages (`xfeat.*`) in the
+  trace of any running `torch.profiler` session, and nothing otherwise.
 - `time_fn`: steady-state seconds a call, between CUDA events where a
   card is present (synchronized, after a warmup), by the host clock
   without one.
@@ -17,7 +19,6 @@
 - `time_ms`, `profile_call`, `median_wall_ms`: the card-only timers of
   `chip_smoke.py` (device time with a cold L2, device busy time and idle
   share of one call, host walls ended by a synchronize).
-- `FPSMeter`: a rolling frames-per-second meter.
 
 The peaks are NVIDIA's data-sheet numbers for the H100 SXM at its 700 W
 limit (dense, no sparsity). A card set to a lower power limit runs below
@@ -33,6 +34,8 @@ import time
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 
 # H100 SXM peaks: HBM bytes/s, fp32 FLOP/s on the CUDA cores (no tensor
 # cores), dense TF32 and bf16 FLOP/s on the tensor cores. A float32-grade
@@ -63,6 +66,30 @@ def device_trace(logdir: str):
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(
         logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks `name` as a range of the running profiler's
+    trace, timestamped on the profiler's own clock (the clock its device
+    records are placed on). With no profiler running it is one shared
+    no-op context, after a single read of the profiler's enabled flag:
+    no range object, no allocation, no device call.
+
+    The range is a plain function-scope record (`_RecordFunctionFast`),
+    not a `record_function` user annotation: the profiler projects user
+    annotations onto the device timeline as events of their own, which a
+    reader of the device trace would take for device operations, and a
+    user annotation costs several times more to enter. Spans of one call
+    nest inside the caller's ranges. An operator sees them by tracing,
+    with `device_trace` or any `torch.profiler` session, in the host
+    timeline of the Chrome or Perfetto view, each kernel tied to its
+    launch."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
 
 
 def _timed_loop(run: Callable[[int], Any], iters: int) -> float:
@@ -307,21 +334,3 @@ def median_wall_ms(fn: Callable[[], Any], calls: int = 5
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return walls, sorted(walls)[calls // 2]
-
-
-class FPSMeter:
-    """Rolling-window frames-per-second meter (the reference's realtime
-    demo meter)."""
-
-    def __init__(self, window: int = 30):
-        self.window = window
-        self._stamps: List[float] = []
-
-    def tick(self) -> float:
-        now = time.perf_counter()
-        self._stamps.append(now)
-        if len(self._stamps) > self.window:
-            self._stamps.pop(0)
-        if len(self._stamps) < 2:
-            return 0.0
-        return (len(self._stamps) - 1) / (self._stamps[-1] - self._stamps[0])

@@ -838,3 +838,63 @@ def test_server_on_the_card_answers_like_direct_calls(dev):
         httpd.shutdown()
         httpd.server_close()
         thread.join(30)
+
+
+def test_stage_ranges_put_nothing_on_the_device_timeline(dev):
+    """Under a CUDA profiler the port's `xfeat.*` ranges are host ranges
+    only (the profiler projects user annotations onto the device's
+    timeline; these are not), every kernel of the three entries is
+    launched inside one of them, and the outputs equal an unprofiled
+    call's to the bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerated_features_tpu_torch.ops.extraction import \
+        detect_and_compute
+    gen = torch.Generator().manual_seed(3)
+    params = to_dev(load_params(None), dev)
+    imgs = torch.randint(0, 256, (2, 96, 128, 1), dtype=torch.uint8,
+                         generator=gen).to(dev)
+    lgp = to_dev(lighterglue.init_lighterglue_params(gen), dev)
+    size = torch.tensor([[128.0, 96.0]], device=dev)
+
+    def calls():
+        f = detect_and_compute(params, imgs, 64, 0.0)
+        m = lighterglue.lighterglue_forward(
+            lgp, f["keypoints"][:1], f["keypoints"][1:],
+            f["descriptors"][:1], f["descriptors"][1:], size, size,
+            f["valid"][:1], f["valid"][1:], width_confidence=0.95,
+            pruning_min_kpts=0)
+        idx, mask = mnn.batch_mnn_match_fused(
+            f["descriptors"][:1], f["descriptors"][1:], f["valid"][:1],
+            f["valid"][1:])
+        return [f[k] for k in sorted(f)] + [m["matches0"], m["mscores0"],
+                                            idx, mask]
+
+    plain = calls()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = calls()
+        torch.cuda.synchronize()
+    for a, b in zip(plain, traced):
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in events if e.device_type() == cuda]
+    assert not [e.name() for e in device if e.name().startswith("xfeat.")]
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+              if e.device_type() != cuda and e.name().startswith("xfeat.")]
+    names = {e.name() for e in events if e.name().startswith("xfeat.")}
+    assert {"xfeat.extract.backbone", "xfeat.lighterglue.prune",
+            "xfeat.lighterglue.assign", "xfeat.mnn"} <= names
+    launch = {e.correlation_id(): e.start_ns() for e in events
+              if e.device_type() != cuda
+              and e.name().startswith(("cuda", "cu"))}
+    kernels = [e for e in device
+               if not e.name().lower().startswith(("memcpy", "memset"))]
+    assert kernels
+    for e in kernels:
+        t = launch[e.correlation_id()]
+        assert any(a <= t < b for a, b in ranges), e.name()

@@ -109,15 +109,6 @@ def test_roofline_floor_and_speed_of_light():
         (pytest.approx(1.0), "operations")
 
 
-def test_fps_meter():
-    m = profiling.FPSMeter(window=3)
-    assert m.tick() == 0.0
-    for _ in range(4):
-        time.sleep(0.01)
-        fps = m.tick()
-    assert len(m._stamps) == 3 and 10 < fps < 101
-
-
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with profiling.device_trace(str(tmp_path)):
         torch.ones(8) @ torch.ones(8)
