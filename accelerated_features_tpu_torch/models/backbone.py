@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda.feature_fusion import fuse_pyramid, fuse_pyramid_reference
 from ..ops.cuda.stem_fused import stem_fused
 from ..ops.precision import full_fp32_convs
 from .params import BN_EPS
@@ -172,7 +173,12 @@ def xfeat_forward(params: Dict[str, Any], x: torch.Tensor, *,
     `bn_reduce`: with `train=True` under data parallelism, the sum over
     the ranks that hold the rest of the batch (`parallel.mesh.AxisSum`),
     so that every BatchNorm normalizes with the global batch's
-    statistics."""
+    statistics.
+
+    The pyramid fusion, block3 + up(block4) + up(block5), goes to
+    `ops/cuda/feature_fusion.fuse_pyramid` (on the card: kernel F) in
+    float32 inference when autograd records nothing through it; otherwise
+    it runs as its plain expression."""
     if compute_dtype not in (torch.float32, torch.bfloat16, torch.float64):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{compute_dtype}")
@@ -199,10 +205,15 @@ def xfeat_forward(params: Dict[str, Any], x: torch.Tensor, *,
         for name in ("block2", "block3", "block4", "block5"):
             y = outs[name] = block(name, y, BLOCK_STRIDES[name])
 
-        x3 = outs["block3"]
-        hw = (x3.shape[2], x3.shape[3])
-        fused = x3 + _upsample(outs["block4"], hw) + _upsample(outs["block5"],
-                                                               hw)
+        pyramid = (outs["block3"], outs["block4"], outs["block5"])
+        # kernel F in float32 when no gradient is recorded through the sum;
+        # training, other dtypes and autograd take the plain expression
+        recording = torch.is_grad_enabled() and any(t.requires_grad
+                                                    for t in pyramid)
+        if train or recording or compute_dtype != torch.float32:
+            fused = fuse_pyramid_reference(*pyramid)
+        else:
+            fused = fuse_pyramid(*pyramid)
         fused = block("block_fusion", fused, [1, 1])
         feats = _conv(fused, params["block_fusion"][-1])
 

@@ -10,8 +10,8 @@ The compiler's report (`-Xptxas -v`: registers, shared memory and spills
 of every kernel) is kept beside each library as `lib<name>.log`.
 
 Each C entry launches on the stream it is given and returns
-`cudaGetLastError()`; `launch` raises when that is not 0. Kernels A, B, C
-and E have no backward: their wrappers call `refuse_grad` before they
+`cudaGetLastError()`; `launch` raises when that is not 0. Kernels A, B, C,
+E and F have no backward: their wrappers call `refuse_grad` before they
 launch. Kernel D's gradient is a kernel of its own (`attention_bwd.cu`),
 wired in by `attention._Attention`.
 """

@@ -15,9 +15,10 @@ Run from the root of a checkout. In order, it
      K1 != K2 off the row panel; attention at every head width with a
      ragged last key tile, a masked tail and a key range that ends inside a
      split; descriptor sampling of a raw map with zero pixels and taps off
-     the map), and shows that the wrappers of A, B, C and E refuse an
-     input that requires grad while grad mode is on, and that D records
-     its call and runs its backward kernel;
+     the map; the pyramid fusion F with one-pixel block5 maps), and shows
+     that the wrappers of A, B, C, E and F refuse an input that requires
+     grad while grad mode is on, and that D records its call and runs its
+     backward kernel;
   3. drives the three matchers end to end with the repository's trained
      extractor `artifacts/run_md_ckpt13250.npz` and trained matcher
      `artifacts/lighterglue_ft_ckpt7791.npz`: `detectAndCompute` on a batch
@@ -25,10 +26,10 @@ Run from the root of a checkout. In order, it
      image and its copy rolled by (24, 16) px, and `batch_match`; every
      kernel must have been launched, at least half of the matches must
      show the known shift, and each result must agree with the port's
-     plain path on the CPU;
+     plain path on the CPU (F runs once an extraction);
   4. drives the throughput configuration, `XFeat(compute_dtype="bfloat16",
      fused_stem=True)`, through `match_xfeat` (the stem kernel must have
-     been launched), and the pose path: the batched RANSAC on 8 seeded
+     been launched, F must not), and the pose path: the batched RANSAC on 8 seeded
      two-view scenes of 2048 correspondences, against the truth, against
      the port's CPU path from the same samples, and through
      `run_benchmark_precomputed`; then the native `posekit` backend (built
@@ -224,6 +225,43 @@ def stem_flops(b: int, h: int, w: int) -> float:
     per_px = 2 * 9 * (1 * 4 + 4 * 8 / 4 + 8 * 8 / 4 + 8 * 24 / 16) \
         + (16 + 2 * 24) / 16
     return per_px * b * h * w
+
+
+def pyramid(b: int, h: int, w: int, seed: int):
+    """block3, block4 and block5 outputs of an (h, w) image on the card:
+    ReLU'd seeded normals at /8, /16 and /32, half of them exact zeros as
+    the backbone's are."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.relu(torch.randn((b, 64, h // s, w // s), generator=g,
+                                   device="cuda")) for s in (8, 16, 32)]
+
+
+def check_fusion(fuse, plain) -> float:
+    """Kernel F against its plain version on the card at the main path's
+    sizes (B = 1, 4 and 64 of 608x800), 480x640 and 32x32 (block5 one
+    pixel): within 2 ulp of each value (the compiler may contract the
+    interpolation's products otherwise than PyTorch's bilinear kernel).
+    Returns the largest absolute difference."""
+    import torch
+    worst = 0.0
+    for b, h, w in ((1, 608, 800), (4, 608, 800), (64, 608, 800),
+                    (3, 480, 640), (3, 32, 32)):
+        xs = pyramid(b, h, w, seed=b + h)
+        got, ref = fuse(*xs), plain(*xs)
+        torch.cuda.synchronize()
+        mag = ref.abs()
+        ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+        diff = (got - ref).abs()
+        print(f"check feature_fusion B={b} {h}x{w}: "
+              f"{int((diff > 0).sum())} of {diff.numel()} values differ, "
+              f"largest {float((diff / ulp).max()):.3g} ulp")
+        check(got.shape == ref.shape and got.is_contiguous()
+              and bool((diff <= 2 * ulp).all()),
+              f"kernel F differs from plain by more than 2 ulp (B={b} "
+              f"{h}x{w})")
+        worst = max(worst, diff.max().item())
+    return worst
 
 
 def check_stem(params, x_main, errs) -> None:
@@ -3255,6 +3293,8 @@ def main() -> int:
         plain_descriptors, sample_descriptors)
     from accelerated_features_tpu_torch.ops.cuda.detect_fused import (
         topk_exact, topk_keypoints_fused)
+    from accelerated_features_tpu_torch.ops.cuda.feature_fusion import (
+        fuse_pyramid, fuse_pyramid_reference)
     from accelerated_features_tpu_torch.ops.cuda.mnn import \
         batch_mnn_match_fused
     from accelerated_features_tpu_torch.ops.cuda.mnn import \
@@ -3315,19 +3355,19 @@ def main() -> int:
     # `topk_keypoints(score_map(...))` on all K slots under torch.equal
     # (order, ties, padded tail): at B=1 and B=4 with K=4096, K=N (every
     # candidate's score and tile position), K>N (a 64x64 image) and, on a
-    # 912x1216 image, a K whose sort goes through device memory
+    # 896x1216 image, a K whose sort goes through device memory
     def bits(t_):
         return t_.contiguous().view(torch.int32)
 
     x_big = to_unit_float(torch.from_numpy(
-        texture(9, 912, 1216)[None, ..., None].repeat(3, -1)).to(dev))
+        texture(9, 896, 1216)[None, ..., None].repeat(3, -1)).to(dev))
     _, logits_big, heat_big = xfeat_forward(xf.model.params, x_big)
     detect_cases = [("B=1", kheat[:1], rel[:1], TOP_K),
                     ("B=4", kheat, rel, TOP_K),
                     ("B=1 K=N", kheat[:1], rel[:1], (H // 2) * (W // 2)),
                     ("B=4 K>N 64x64", kheat[:, :64, :64], rel[:, :8, :8],
                      TOP_K),
-                    ("B=1 912x1216, sort in device memory",
+                    ("B=1 896x1216, sort in device memory",
                      heatmap_decode(logits_big), heat_big[..., 0], 140000)]
     errs["detect_fused"] = 0.0
     for tag, kh, rl, k_ in detect_cases:
@@ -3408,6 +3448,9 @@ def main() -> int:
             marked[0, :8].reshape(1, -1, 64),
             feats[1, :8].reshape(1, -1, 64)),
         "stem_fused": lambda: stem_fused(stem_params, input_norm(x[:1])),
+        "feature_fusion": lambda: fuse_pyramid(
+            *(t_.requires_grad_(i == 0) for i, t_ in
+              enumerate(pyramid(1, 32, 64, seed=3)))),
     }
     for name, call in guard_calls.items():
         with torch.enable_grad():
@@ -3615,13 +3658,18 @@ def main() -> int:
     # kernel E on the normalized images of the main path and at odd sizes
     check_stem(xf.model.params, input_norm(x).contiguous(), errs)
 
+    # kernel F at the main path's shapes and where block5 is one pixel
+    errs["feature_fusion"] = check_fusion(fuse_pyramid,
+                                          fuse_pyramid_reference)
+
     # ---- 3. end to end through the user API ---------------------------------
     counters = {"detect_fused": topk_keypoints_fused,
                 "topk_exact": topk_exact,
                 "bicubic": sample_descriptors,
                 "mnn": batch_mnn_match_fused,
                 "attention": flash_attention,
-                "stem_fused": stem_fused}
+                "stem_fused": stem_fused,
+                "feature_fusion": fuse_pyramid}
     matcher = xf.set_lighterglue(weights=str(lg_weights))
     size = {"image_size": (W, H)}
     for fn in counters.values():
@@ -3637,7 +3685,8 @@ def main() -> int:
     e2e_s = time.time() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     print(f"main path, sparse XFeat: {e2e_s:.3f} s, launches {launches}")
-    check(all(launches[k] > 0 for k in ("detect_fused", "bicubic", "mnn")),
+    check(all(launches[k] > 0 for k in ("detect_fused", "bicubic", "mnn",
+                                        "feature_fusion")),
           f"a kernel was not launched on the sparse path: {launches}")
     # the other two matchers, counted on their own: LighterGlue on the
     # extraction above, and XFeat*
@@ -3864,9 +3913,10 @@ def main() -> int:
     print(f"main path, bfloat16 + fused stem match_xfeat: {e2e_s:.3f} s, "
           f"launches {bf16_launches}")
     check(bf16_launches["stem_fused"] == 2
+          and bf16_launches["feature_fusion"] == 0
           and all(bf16_launches[k] > 0
                   for k in ("detect_fused", "bicubic", "mnn")),
-          f"a kernel was not launched on this path: {bf16_launches}")
+          f"a kernel was (not) launched on this path: {bf16_launches}")
     launches["stem_fused"] = bf16_launches["stem_fused"]
     check(len(b0) > 100 and np.isfinite(b0).all() and np.isfinite(b1).all(),
           f"only {len(b0)} matches in bfloat16")
@@ -4241,6 +4291,37 @@ def main() -> int:
                      max_abs_err_f32=errs["stem_fused_f32"], ms_f32=ms32,
                      plain_ms_f32=pms32, bound_ms_f32=bms32,
                      bound_by_f32=by32))
+    # kernel F at B = 64, 608x800, the extract cell's batch. Bytes bound
+    # it: block3 read once, block4 and block5 read once, the sum written
+    # once; operations: two interpolations of 9 and two adds an output.
+    # Plain: the backbone's expression (two upsample_bilinear2d launches and
+    # two adds); no single PyTorch call computes the function.
+    xs = pyramid(64, H, W, seed=0)
+    ms = time_ms(lambda: fuse_pyramid(*xs))
+    pms = time_ms(lambda: fuse_pyramid_reference(*xs), iters=20)
+    nbytes = 4 * (2 * xs[0].numel() + xs[1].numel() + xs[2].numel())
+    bms, by = bound(nbytes, 20 * xs[0].numel())
+    # the main path's count: detectAndCompute on the batch and
+    # match_xfeat's two extractions are 3 xfeat_forward calls
+    per_forward = launches["feature_fusion"] / 3
+    rows.append(dict(name="feature_fusion", route="cuda",
+                     source="accelerated_features_tpu_torch/csrc/"
+                            "feature_fusion.cu",
+                     replaces="none (the JAX package leaves the fusion to "
+                              "XLA: accelerated_features_tpu/models/"
+                              "backbone.py)",
+                     launches=launches["feature_fusion"],
+                     launches_per_xfeat_forward=per_forward,
+                     max_abs_err=errs["feature_fusion"], ms=ms, plain_ms=pms,
+                     bound_ms=bms, bound_by=by,
+                     bound_peak="HBM 3.35 TB/s", library_ms=None))
+    print(f"time feature_fusion B=64 {H}x{W}: kernel {ms:.4f} ms, plain "
+          f"(2 upsamples + 2 adds) {pms:.4f} ms, bound {bms:.5f} ms ({by}), "
+          f"share of the bound {bms / ms:.3f}; {per_forward:g} launch an "
+          f"xfeat_forward call on the main path")
+    check(per_forward == 1, "xfeat_forward did not launch kernel F once "
+          "a call on the main path")
+    del xs
 
     profile_call("match_xfeat", lambda: xf.match_xfeat(imgs[0], imgs[1]))
     profile_call("match_xfeat bfloat16 + fused stem",

@@ -16,7 +16,8 @@ from accelerated_features_tpu_torch.models import lighterglue
 from accelerated_features_tpu_torch.models.backbone import xfeat_forward
 from accelerated_features_tpu_torch.models.params import load_params
 from accelerated_features_tpu_torch.ops.cuda import (attention, bicubic,
-                                                     detect_fused, mnn,
+                                                     detect_fused,
+                                                     feature_fusion, mnn,
                                                      stem_fused)
 from accelerated_features_tpu_torch.ops.detect import (_padded_top_k,
                                                         dense_topk,
@@ -528,6 +529,71 @@ def test_backbone_routes_to_the_stem_kernel(dev):
     assert stem_fused.stem_fused.launches == n + 2
 
 
+def _pyramid(dev, b, h, w, seed=0):
+    """block3, block4 and block5 outputs of an (h, w) image on the card:
+    ReLU'd seeded normals at /8, /16 and /32, so about half are exact
+    zeros, as the backbone's are."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.relu(torch.randn((b, 64, h // s, w // s), generator=gen,
+                                   device=dev)) for s in (8, 16, 32)]
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("h,w", [(608, 800), (480, 640), (32, 32)])
+def test_fusion_kernel_matches_plain(dev, b, h, w):
+    """Kernel F against the backbone's plain expression. The kernel writes
+    the plain version's arithmetic in its order, (x3 + up4) + up5, but
+    the compiler may contract the interpolation's products into FMAs
+    otherwise than in PyTorch's bilinear kernel; each such difference is a
+    rounding of a sum of nonnegative terms, so the results may differ by a
+    few ulp of the value itself: held to 2 ulp of each value's magnitude
+    (32x32: block5 is a single pixel)."""
+    x3, x4, x5 = _pyramid(dev, b, h, w, seed=b + h)
+    n = feature_fusion.fuse_pyramid.launches
+    got = feature_fusion.fuse_pyramid(x3, x4, x5)
+    assert feature_fusion.fuse_pyramid.launches == n + 1
+    ref = feature_fusion.fuse_pyramid_reference(x3, x4, x5)
+    assert got.shape == ref.shape == (b, 64, h // 8, w // 8)
+    assert got.is_contiguous()
+    mag = ref.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    assert bool(((got - ref).abs() <= 2 * ulp).all()), \
+        float(((got - ref).abs() / ulp).max())
+
+
+def test_backbone_routes_to_the_fusion_kernel(dev):
+    """Float32 inference launches kernel F once a call; training, weights
+    that autograd records and bfloat16 take the plain expression; sides
+    not divisible by 32 (80x112: block3 10x14, block4 5x7, block5 3x4)
+    are refused."""
+    ckpt = Path(__file__).resolve().parents[1] / "artifacts" \
+        / "run_md_ckpt13250.npz"
+    params = to_dev(load_params(str(ckpt)), dev)
+    x = torch.tensor(np.random.default_rng(0).uniform(size=(2, 96, 128, 3)),
+                     dtype=torch.float32, device=dev)
+    launches = feature_fusion.fuse_pyramid
+    n = launches.launches
+    with torch.no_grad():
+        got = xfeat_forward(params, x)
+    assert launches.launches == n + 1
+    xfeat_forward(params, x)  # grad mode on, nothing requires grad
+    assert launches.launches == n + 2
+    with pytest.raises(ValueError), torch.no_grad():
+        xfeat_forward(params, x[:, :80, :112].contiguous())
+    xfeat_forward(params, x, compute_dtype=torch.bfloat16)
+    unfolded = to_dev(load_params(str(ckpt), fold_bn=False), dev)
+    xfeat_forward(unfolded, x, train=True)
+    graded = {**params, "block3": [{**p, "w": p["w"].clone()
+                                    .requires_grad_(True)}
+                                   for p in params["block3"]]}
+    plain = xfeat_forward(graded, x)
+    plain[0].sum().backward()
+    assert graded["block3"][0]["w"].grad is not None
+    assert launches.launches == n + 2
+    for a, b in zip(got, plain):  # the same convs on the card
+        torch.testing.assert_close(a, b.detach(), atol=1e-4, rtol=1e-5)
+
+
 def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         attention.flash_attention(torch.zeros(1, 4, 128, device=dev),
@@ -553,6 +619,11 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         d2 = torch.zeros(1, 64, 4, device=dev).transpose(1, 2)  # strided
         mnn.batch_mnn_match_fused(torch.zeros(1, 4, 64, device=dev), d2)
+    x3, x4, x5 = _pyramid(dev, 1, 64, 64)
+    with pytest.raises(ValueError):  # float64 on the card
+        feature_fusion.fuse_pyramid(x3.double(), x4.double(), x5.double())
+    with pytest.raises(ValueError):  # block5 at 1/2, not 1/4
+        feature_fusion.fuse_pyramid(x3, x4, x4)
 
 
 def _guard_cases(dev):
@@ -579,11 +650,14 @@ def _guard_cases(dev):
             {**params, "block1": [{**params["block1"][0], "w": w},
                                   *params["block1"][1:]]}, x),
                          [params["block1"][0]["w"], xg]),
+        "F feature_fusion": (feature_fusion.fuse_pyramid,
+                             _pyramid(dev, 1, 32, 64)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["A detect_fused", "A topk_exact",
-                                    "B bicubic", "C mnn", "E stem_fused"])
+                                    "B bicubic", "C mnn", "E stem_fused",
+                                    "F feature_fusion"])
 def test_kernels_refuse_inputs_that_require_grad(dev, kernel):
     """With grad mode on, an input (for the stem: a weight) that requires
     grad makes the wrapper raise before it launches; under no_grad the
