@@ -46,7 +46,8 @@ IMPOSSIBLE = 1e6
 
 # Each limit lies between the largest reading of sound runs of the program
 # over a dozen seeds (the lower) and the smallest reading of the control
-# (the upper), nearer the upper; the readings are in PERF.md.
+# (the upper), nearer the upper; the readings are in PERF.md. A pipeline
+# (`pipelines/<name>.py`) adds the limits of numbers of its own.
 LIMITS = {
     "select_gap": 1e-4,     # lower 1.48e-6, upper 1.92e-3
     "score_gap": 1e-3,      # lower 2.60e-5, upper 1.32e-2
@@ -308,16 +309,26 @@ def judge_lighterglue_pair(params: Dict[str, Any], conf: Dict[str, Any],
             "counts": r["counts"], "decisions": r["decisions"]}
 
 
-def verdict(numbers: Dict[str, float]) -> Tuple[bool, Dict[str, Dict]]:
-    """All numbers within their limits -> (correct, {name: value, limit})."""
-    shown = {k: {"value": v, "limit": LIMITS[k]} for k, v in numbers.items()}
-    return all(v <= LIMITS[k] for k, v in numbers.items()), shown
+def verdict(numbers: Dict[str, float], own: Dict[str, float]
+            ) -> Tuple[bool, Dict[str, Dict]]:
+    """All numbers within their limits, `LIMITS` and the pipeline's `own`
+    -> (correct, {name: value, limit}). A limit defined in both, or a
+    number without a limit, is refused."""
+    twice = sorted(set(own) & set(LIMITS))
+    if twice:
+        raise ValueError(f"limits defined twice: {twice}")
+    lim = {**LIMITS, **own}
+    unknown = sorted(set(numbers) - set(lim))
+    if unknown:
+        raise KeyError(f"no limit for {unknown}")
+    shown = {k: {"value": v, "limit": lim[k]} for k, v in numbers.items()}
+    return all(v <= lim[k] for k, v in numbers.items()), shown
 
 
 def merge(parts: Iterable[Dict[str, float]]) -> Dict[str, float]:
+    """The largest reading of each number over the parts."""
     out: Dict[str, float] = {}
     for p in parts:
         for k, v in p.items():
-            if k in LIMITS:
-                out[k] = max(out.get(k, 0.0), float(v))
+            out[k] = max(out.get(k, 0.0), float(v))
     return out

@@ -1,6 +1,12 @@
 """One run of one cell: set-up, warm-up, the measured window, the traced
 reading, and the comparison that decides `correct`.
 
+What a cell runs is its configuration's pipeline, `pipelines/<name>.py`,
+found by the name the configuration gives (`xfeat` where it gives none;
+`pipelines/xfeat.py` says what a pipeline provides): its request kinds,
+the program's entries, the control, and the check with its own limits.
+This module holds what every pipeline shares.
+
 A request starts with its inputs in page-locked host memory and ends when
 its outputs are in page-locked host memory: the upload, the calls into
 the program and the readback, copied by DMA. (Pageable buffers, as the
@@ -8,15 +14,6 @@ port's `eval/batched` uses, made the copies the host's memcpy: 2.7x
 slower and 9-24% apart from run to run on the card's host.) One
 client sends requests back to back (a closed loop), cycling through a
 small fixed set of distinct requests made in set-up from the seed.
-
-Request kinds, named by the traffic mix:
-- `images`: a batch of views -> keypoints, scores, descriptors, valid.
-- `pairs`: the views of a batch of pairs, extracted in one call, then the
-  configuration's matcher over the pairs -> the matches, and the keypoints
-  and valid masks they index.
-- `feature_block`: the features of a block of views (made in set-up by
-  the reference extractor) -> every pair of the block matched, a chunk of
-  pairs at a time.
 """
 
 from __future__ import annotations
@@ -26,40 +23,20 @@ import gc
 import sys
 import time
 import traceback
-from dataclasses import dataclass, field
+from dataclasses import dataclass
+from functools import cached_property
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from types import ModuleType
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import check, counts, inputs, spec as spec_mod
-from .program import Program
-from .reference import weights as ref_weights
-from .reference import xfeat as ref_xfeat
+from . import check, inputs, spec as spec_mod
 from .timeline import percentile
 from .trace import Trace, Tracer, breakdown, read_profile
 
 TRACE_MAX_SECONDS = 10.0    # the traced run's window, at most
-
-
-@dataclass
-class Request:
-    arrays: Dict[str, torch.Tensor]     # host memory
-    images: int
-    pairs: int
-    block_pairs: List[Tuple[int, int]] = field(default_factory=list)
-
-
-def host_tensor(a: np.ndarray, pinned: bool) -> torch.Tensor:
-    """A host copy of `a`: page-locked when `pinned` (with a card), else
-    numpy's own memory."""
-    if not pinned:
-        return torch.from_numpy(np.ascontiguousarray(a))
-    t = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
-                    pin_memory=True)
-    t.numpy()[...] = a
-    return t
 
 
 @dataclass
@@ -85,262 +62,43 @@ def _deep_update(base: Dict, changes: Dict) -> Dict:
     return out
 
 
-# --------------------------------------------------------------------------
-# set-up: the requests
-# --------------------------------------------------------------------------
+@dataclass
+class Cell:
+    """A cell's entry, configuration, traffic mix and pipeline, and its
+    views, decoded at their first use (after the program has loaded, as
+    a run always did)."""
+    spec: Dict[str, Any]
+    config: Dict[str, Any]
+    traffic: Dict[str, Any]
+    pipeline: ModuleType
+    root: Path
+    crop_hw: Optional[Tuple[int, int]]
 
-def make_requests(traffic: Dict, config: Dict, views: inputs.Views,
-                  seed: int, device, root: Path) -> List[Request]:
-    rng = np.random.default_rng(seed)
-    kind, n = traffic["request"], traffic["distinct_requests"]
-    hom = traffic["homography"]
-    pinned = torch.device(device).type == "cuda"
-
-    def host(arrays):
-        return {k: host_tensor(a, pinned) for k, a in arrays.items()}
-
-    if kind == "images":
-        b = traffic["views_per_request"]
-        idx = inputs.draw(rng, len(views.images), b * n)
-        imgs = inputs.warped_views(views, idx, rng, hom, device)
-        return [Request(host({"images": imgs[r * b:(r + 1) * b]}), b, 0)
-                for r in range(n)]
-    if kind == "pairs":
-        p = traffic["pairs_per_request"]
-        chosen = inputs.draw(rng, len(views.pairs), p * n)
-        out = []
-        for r in range(n):
-            sel = [views.pairs[i] for i in chosen[r * p:(r + 1) * p]]
-            idx = [a for a, _ in sel] + [b for _, b in sel]
-            out.append(Request(host({"images": inputs.warped_views(
-                views, idx, rng, hom, device)}), 2 * p, p))
-        return out
-    if kind == "feature_block":
-        v = traffic["views_per_block"]
-        ex = config["extractor"]
-        params = ref_weights.load_xfeat(str(root / config["weights"]
-                                            ["extractor"]), device)
-        pairs = inputs.pair_blocks(v)
-        out = []
-        for r in range(n):
-            idx = inputs.draw(rng, len(views.images), v)
-            imgs = inputs.warped_views(views, idx, rng, hom, device)
-            feats = {"keypoints": [], "descriptors": [], "valid": []}
-            for c0 in range(0, v, 10):
-                f = ref_xfeat.extract(
-                    params, torch.from_numpy(imgs[c0:c0 + 10]).to(device),
-                    traffic["top_k"], ex["detection_threshold"])
-                for k in feats:
-                    feats[k].append(f[k].cpu().numpy())
-            out.append(Request(host({k: np.concatenate(a)
-                                     for k, a in feats.items()}),
-                               0, len(pairs), pairs))
-        del params
-        return out
-    raise ValueError(f"unknown request kind {kind!r}")
+    @cached_property
+    def views(self) -> inputs.Views:
+        return inputs.Views(Path(self.root) / self.traffic["views"],
+                            self.traffic["pairs_file"], self.crop_hw)
 
 
-# --------------------------------------------------------------------------
-# the timed path
-# --------------------------------------------------------------------------
+def open_cell(cell_name: str, root: Path = spec_mod.ROOT,
+              overrides: Optional[Dict] = None) -> Cell:
+    """`overrides` changes the traffic, the configuration or the views
+    (`{"traffic": {...}, "config": {...}, "crop_hw": (h, w)}`): tests run
+    tiny cells on the CPU with it."""
+    overrides = overrides or {}
+    spec = spec_mod.load(root)
+    cell = spec_mod.cell(spec, cell_name)
+    config = _deep_update(spec_mod.config(spec, cell["config"], root),
+                          overrides.get("config", {}))
+    traffic = _deep_update(spec_mod.traffic(cell["traffic"], root),
+                           overrides.get("traffic", {}))
+    pipe = spec_mod.pipeline(config.get("pipeline",
+                                        spec_mod.DEFAULT_PIPELINE), root)
+    return Cell(spec, config, traffic, pipe, root, overrides.get("crop_hw"))
 
-EXTRACT_KEYS = ("keypoints", "scores", "descriptors", "valid")
-
-
-class Executor:
-    """Runs one request through the program; returns the outputs read
-    back to host memory and the device tensors the check reads after the
-    window."""
-
-    def __init__(self, prog, config: Dict, traffic: Dict, device,
-                 tracer: Tracer, hw: Tuple[int, int]):
-        self.prog, self.config, self.traffic = prog, config, traffic
-        self.device, self.tracer = torch.device(device), tracer
-        self.kind = traffic["request"]
-        self.matcher = config.get("matcher")
-        self.pinned = self.device.type == "cuda"
-        self._chunk_index = None
-        if self.kind == "pairs" and self.matcher == "lighterglue":
-            p = traffic["pairs_per_request"]
-            self.size = torch.tensor([[hw[1], hw[0]]] * p,
-                                     dtype=torch.float32, device=self.device)
-
-    def __call__(self, req: Request):
-        span = self.tracer.span
-        top_k = self.traffic["top_k"]
-        with span("request"):
-            if self.kind == "images":
-                with span("upload"):
-                    x = self._up(req.arrays["images"])
-                with span("extract"):
-                    f = self.prog.extract(x, top_k)
-                with span("readback"):
-                    out = {k: self._down(f[k]) for k in EXTRACT_KEYS}
-                return out, {}
-            if self.kind == "pairs":
-                p = req.pairs
-                with span("upload"):
-                    x = self._up(req.arrays["images"])
-                with span("extract"):
-                    f = self.prog.extract(x, top_k)
-                f0 = {k: v[:p] for k, v in f.items()}
-                f1 = {k: v[p:] for k, v in f.items()}
-                with span("match"):
-                    m = self._match(f0, f1)
-                with span("readback"):
-                    out = {k: self._down(v) for k, v in m.items()}
-                    out["keypoints"] = self._down(f["keypoints"])
-                    out["valid"] = self._down(f["valid"])
-                return out, {"scores": f["scores"],
-                             "descriptors": f["descriptors"]}
-            if self.kind == "feature_block":
-                with span("upload"):
-                    d = self._up(req.arrays["descriptors"])
-                    v = self._up(req.arrays["valid"])
-                    k = self._up(req.arrays["keypoints"])
-                n = len(req.block_pairs)
-                out: Dict[str, torch.Tensor] = {}
-                for c0, c1, a, b in self._chunks(req.block_pairs):
-                    with span("match"):
-                        m = self._match(
-                            {"descriptors": d[a], "valid": v[a],
-                             "keypoints": k[a]},
-                            {"descriptors": d[b], "valid": v[b],
-                             "keypoints": k[b]})
-                    with span("readback"):
-                        for key, t in m.items():
-                            if key not in out:
-                                out[key] = self._host((n,) + t.shape[1:],
-                                                      t.dtype)
-                            out[key][c0:c1].copy_(t)
-                return {key: t.numpy() for key, t in out.items()}, {}
-        raise ValueError(f"unknown request kind {self.kind!r}")
-
-    def _chunks(self, pairs: List[Tuple[int, int]]):
-        """(start, end, rows of the first views, rows of the second) of
-        each chunk of a block's pairs, the index tensors on the device,
-        made once (every block has the same pairs)."""
-        if self._chunk_index is None:
-            step = self.traffic["pairs_per_chunk"]
-            self._chunk_index = []
-            for c0 in range(0, len(pairs), step):
-                sel = pairs[c0:c0 + step]
-                self._chunk_index.append((
-                    c0, c0 + len(sel),
-                    torch.tensor([q[0] for q in sel], device=self.device),
-                    torch.tensor([q[1] for q in sel], device=self.device)))
-        return self._chunk_index
-
-    def _up(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device)
-
-    def _host(self, shape, dtype) -> torch.Tensor:
-        """An empty host tensor of the traffic's kind of memory."""
-        return torch.empty(shape, dtype=dtype, pin_memory=self.pinned)
-
-    def _down(self, t: torch.Tensor) -> np.ndarray:
-        """Device -> host memory of the traffic's kind; waits for it."""
-        out = self._host(t.shape, t.dtype)
-        out.copy_(t)
-        return out.numpy()
-
-    def _match(self, f0, f1) -> Dict[str, torch.Tensor]:
-        if self.matcher == "mnn":
-            idx1, mask = self.prog.mnn(f0["descriptors"], f1["descriptors"],
-                                       f0["valid"], f1["valid"])
-            return {"idx1": idx1, "mask": mask}
-        if self.matcher == "lighterglue":
-            size = self.size[:f0["valid"].shape[0]]
-            return self.prog.lighterglue(f0, f1, size)
-        raise ValueError(f"unknown matcher {self.matcher!r}")
-
-
-# --------------------------------------------------------------------------
-# the check
-# --------------------------------------------------------------------------
 
 def _to_host(extras: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in extras.items()}
-
-
-def judge(config: Dict, traffic: Dict, requests: List[Request],
-          answers: List[Dict[str, np.ndarray]], root: Path, device
-          ) -> Tuple[Dict[str, float], List[Dict[str, Any]]]:
-    """The compared numbers over every distinct request's sampled answer,
-    and each distinct request's work (for the metrics)."""
-    dev = torch.device(device)
-    ex = config["extractor"]
-    top_k = traffic["top_k"]
-    kind = traffic["request"]
-    params = ref_weights.load_xfeat(str(root / config["weights"]
-                                        ["extractor"]), dev)
-    lg = None
-    if config.get("matcher") == "lighterglue":
-        lg = ref_weights.load_lighterglue(str(root / config["weights"]
-                                              ["matcher"]), dev)
-    parts, work = [], []
-    for req, got in zip(requests, answers):
-        w: Dict[str, Any] = {"images": req.images, "pairs": req.pairs}
-        if kind in ("images", "pairs"):
-            imgs = req.arrays["images"].numpy()
-            h, wd = imgs.shape[1:3]
-            parts.append(check.judge_extraction(
-                params, imgs, {k: got[k] for k in EXTRACT_KEYS}, top_k,
-                ex["detection_threshold"], dev))
-            w["flops"] = counts.xfeat_flops(h // 32 * 32, wd // 32 * 32) \
-                * req.images
-            w["detect_bytes"] = counts.detect_bytes(
-                h // 32 * 32, wd // 32 * 32, top_k) * req.images
-        else:
-            w["flops"] = 0.0
-        if kind == "pairs" and config["matcher"] == "lighterglue":
-            p = req.pairs
-            h, wd = req.arrays["images"].shape[1:3]
-            size = torch.tensor([wd, h], dtype=torch.float32, device=dev)
-            conf = config["lighterglue"]
-            attn = []
-            for i in range(p):
-                def feats(j):
-                    return {k: torch.as_tensor(got[k][j], device=dev)
-                            for k in ("keypoints", "descriptors", "valid")}
-                r = check.judge_lighterglue_pair(
-                    lg, conf, feats(i), feats(p + i), size,
-                    {k: torch.as_tensor(got[k][i], device=dev)
-                     for k in ("matches0", "mscores0", "keep0", "keep1")})
-                parts.append({k: r[k] for k in ("matcher_gap",
-                                                "mscore_gap")})
-                pruned = [(any(d[0] == li for d in r["decisions"][0]),
-                           any(d[0] == li for d in r["decisions"][1]))
-                          for li in range(len(r["counts"]))]
-                w["flops"] += counts.lighterglue_flops(conf, r["counts"],
-                                                       pruned)
-                attn.append(counts.attention_launches(r["counts"]))
-            # one launch of kernel D serves every pair of the batch
-            d = conf["descriptor_dim"]
-            w["attention"] = [
-                (sum(counts.attention_flops(q, k, d) for q, k in launch),
-                 sum(counts.attention_bytes(q, k, d) for q, k in launch))
-                for launch in zip(*attn)]
-        if kind in ("pairs", "feature_block") and config["matcher"] == "mnn":
-            if kind == "feature_block":
-                descs = req.arrays["descriptors"].to(dev)
-                valid = req.arrays["valid"].to(dev)
-                pairs = req.block_pairs
-            else:
-                p = req.pairs
-                descs = torch.as_tensor(got["descriptors"], device=dev)
-                valid = torch.as_tensor(got["valid"], device=dev)
-                pairs = [(i, p + i) for i in range(p)]
-            parts.append(check.judge_mnn(descs, valid, pairs, got["idx1"],
-                                         got["mask"]))
-            n = valid.sum(1).tolist()
-            k = valid.shape[1]
-            w["mnn_flops"] = sum(counts.mnn_flops(n[a], n[b])
-                                 for a, b in pairs)
-            w["mnn_bytes"] = sum(counts.mnn_bytes(k, k) for _ in pairs)
-            w["flops"] += w["mnn_flops"]
-        work.append(w)
-    return check.merge(parts), work
 
 
 # --------------------------------------------------------------------------
@@ -350,29 +108,21 @@ def judge(config: Dict, traffic: Dict, requests: List[Request],
 def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
              device="cuda", t_start: Optional[float] = None,
              root: Path = spec_mod.ROOT, overrides: Optional[Dict] = None,
-             program: Callable = Program) -> Dict[str, Any]:
+             program: str = "Program") -> Dict[str, Any]:
     """One run of `cell_name`; returns the result's JSON object.
-    `overrides` changes the traffic, the configuration or the views
-    (`{"traffic": {...}, "config": {...}, "crop_hw": (h, w)}`): tests run
-    tiny cells on the CPU with it. `program` is `Program` or `Control`."""
+    `overrides` as `open_cell` takes them. `program` names the pipeline's
+    class in the program's place: `Program` or `Control`."""
     t_start = time.perf_counter() if t_start is None else t_start
-    overrides = overrides or {}
-    spec = spec_mod.load(root)
-    cell = spec_mod.cell(spec, cell_name)
-    config = _deep_update(spec_mod.config(spec, cell["config"], root),
-                          overrides.get("config", {}))
-    traffic = _deep_update(spec_mod.traffic(cell["traffic"], root),
-                           overrides.get("traffic", {}))
+    c = open_cell(cell_name, root, overrides)
+    spec, config, traffic, pipe = c.spec, c.config, c.traffic, c.pipeline
     dev = torch.device(device)
     on_card = dev.type == "cuda"
 
-    prog = program(config, root, dev)
-    views = inputs.Views(root / traffic["views"], traffic["pairs_file"],
-                         overrides.get("crop_hw"))
-    requests = make_requests(traffic, config, views, seed, dev, root)
+    prog = getattr(pipe, program)(config, root, dev)
+    requests = pipe.make_requests(traffic, config, c.views, seed, dev, root)
     n_req = len(requests)
     tracer = Tracer(on=False)
-    execute = Executor(prog, config, traffic, dev, tracer, views.hw)
+    execute = pipe.Executor(prog, config, traffic, dev, tracer, c.views.hw)
 
     # warm-up: every distinct request once, in the window's order
     if on_card:
@@ -457,8 +207,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         numbers, work, correct = {}, [], False
         shown = {}
     else:
-        numbers, work = judge(config, traffic, requests, answers, root, dev)
-        correct, shown = check.verdict(numbers)
+        numbers, work = pipe.judge(config, traffic, requests, answers,
+                                   root, dev)
+        correct, shown = check.verdict(numbers, pipe.LIMITS)
     correct = correct and failed == 0
 
     images = sum(requests[r].images for r in order)

@@ -9,6 +9,7 @@
   from the seed, applied by bilinear sampling (zeros outside the source)
   and rounded back to uint8, in the manner of the synthetic-homography
   evaluations.
+- `host_tensor`: a request's input in the host memory it is sent from.
 
 Every seed gets the same amount of work: the same number of requests of
 the same shapes; the seed chooses the views or pairs, their order, and
@@ -199,6 +200,17 @@ def warped_views(views: Views, index: Sequence[int],
         src = torch.from_numpy(views.images[sel]).to(device)
         out[c0:c0 + len(sel)] = warp(src, hom[c0:c0 + len(sel)]).cpu().numpy()
     return out
+
+
+def host_tensor(a: np.ndarray, pinned: bool) -> torch.Tensor:
+    """A host copy of `a`: page-locked when `pinned` (with a card), else
+    numpy's own memory."""
+    if not pinned:
+        return torch.from_numpy(np.ascontiguousarray(a))
+    t = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
+                    pin_memory=True)
+    t.numpy()[...] = a
+    return t
 
 
 def pair_blocks(n_views: int) -> List[Tuple[int, int]]:

@@ -1,11 +1,12 @@
-"""The readings the limits of `check.py` are set from, for one cell, in
-one process on the card:
+"""The readings the limits of `check.py` and of a pipeline's `LIMITS` are
+set from, for one cell, in one process on the card:
 
 - the program on every seed of `--seeds`: each distinct request of the
   cell run once through the timed path's entries at the cell's size, and
   judged as a run judges it (the lower readings);
-- the control on every seed of `--control-seeds`: the reference at TF32
-  in the program's place (the upper readings).
+- the control on every seed of `--control-seeds`: the pipeline's
+  `Control`, the reference at TF32 in the program's place (the upper
+  readings).
 
     python3 xfeat_bench/readings.py --workload <name> --seeds 1,2,... \
         --control-seeds 21,22,23 [--out FILE]
@@ -39,32 +40,29 @@ def main(argv=None) -> int:
     elif str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     import torch
-    from xfeat_bench import harness, inputs, spec as spec_mod
-    from xfeat_bench.program import Control, Program
+    from xfeat_bench import harness
     from xfeat_bench.trace import Tracer
 
-    spec = spec_mod.load(ROOT)
-    cell = spec_mod.cell(spec, args.workload)
-    config = spec_mod.config(spec, cell["config"], ROOT)
-    traffic = spec_mod.traffic(cell["traffic"], ROOT)
+    c = harness.open_cell(args.workload, ROOT)
+    pipe, config, traffic = c.pipeline, c.config, c.traffic
     dev = torch.device(args.device)
-    views = inputs.Views(ROOT / traffic["views"], traffic["pairs_file"])
     out = open(args.out, "a") if args.out else None
 
     def seeds(text):
         return [int(s) for s in text.split(",") if s.strip()]
 
-    for side, cls, chosen in (("program", Program, seeds(args.seeds)),
-                              ("control", Control, seeds(args.control_seeds))):
+    for side, cls, chosen in (("program", pipe.Program, seeds(args.seeds)),
+                              ("control", pipe.Control,
+                               seeds(args.control_seeds))):
         if not chosen:
             continue
         prog = cls(config, ROOT, dev)
-        execute = harness.Executor(prog, config, traffic, dev, Tracer(),
-                                   views.hw)
+        execute = pipe.Executor(prog, config, traffic, dev, Tracer(),
+                                c.views.hw)
         for seed in chosen:
             t0 = time.perf_counter()
-            requests = harness.make_requests(traffic, config, views, seed,
-                                             dev, ROOT)
+            requests = pipe.make_requests(traffic, config, c.views, seed,
+                                          dev, ROOT)
             answers = []
             with torch.inference_mode():
                 for req in requests:
@@ -74,8 +72,8 @@ def main(argv=None) -> int:
                                 for k, v in extras.items()})
                     answers.append(got)
             t1 = time.perf_counter()
-            numbers, _ = harness.judge(config, traffic, requests, answers,
-                                       ROOT, dev)
+            numbers, _ = pipe.judge(config, traffic, requests, answers,
+                                    ROOT, dev)
             line = json.dumps({"workload": args.workload, "side": side,
                                "seed": seed, "numbers": numbers,
                                "answer_s": t1 - t0,

@@ -35,12 +35,19 @@ def forbidden_modules():
 
 
 def _caches() -> None:
-    """Kernel and compiler caches at fixed paths inside the checkout (the
-    port builds its kernels into `accelerated_features_tpu_torch/_build`)."""
+    """Kernel, compiler and bytecode caches at fixed paths inside the
+    checkout (the port builds its kernels into
+    `accelerated_features_tpu_torch/_build`). The bytecode of every module
+    imported from here on, PyTorch's included, is kept there too, whatever
+    `PYTHONDONTWRITEBYTECODE` says: where the installation keeps none,
+    each run would compile ~800 modules from source again (~3 s of the
+    card host's set-up)."""
     cache = BENCH / "_cache"
     os.environ["TRITON_CACHE_DIR"] = str(cache / "triton")
     os.environ["TORCH_EXTENSIONS_DIR"] = str(cache / "torch_extensions")
     os.environ["CUDA_CACHE_PATH"] = str(cache / "nv")
+    sys.pycache_prefix = str(cache / "pyc")
+    sys.dont_write_bytecode = False
 
 
 def _power_limit() -> str:

@@ -2,20 +2,24 @@
 
 A cell names its configuration and its traffic mix; a configuration's
 `file` is its JSON, a traffic mix is `traffic/<name>.json`, a per-layer
-metric is `metrics/<name>.py`. Adding a configuration, a traffic mix or a
-metric adds files and entries and edits none.
+metric is `metrics/<name>.py`, and the pipeline a configuration names
+(`"pipeline"`, `xfeat` where it names none) is `pipelines/<name>.py`.
+Adding a configuration, a traffic mix, a metric or a pipeline adds files
+and entries and edits none.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from types import ModuleType
 from typing import Any, Dict, List
 
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
+DEFAULT_PIPELINE = "xfeat"
 
 
 def load(root: Path = ROOT) -> Dict[str, Any]:
@@ -57,13 +61,29 @@ def per_layer(spec: Dict[str, Any], cell_name: str) -> List[Dict]:
             or ("workloads" not in m and m["moves"] in reported)]
 
 
-def metric_reader(name: str, root: Path = ROOT) -> ModuleType:
-    """`metrics/<name>.py`, loaded by its path (names hold dots)."""
-    path = Path(root) / BENCH_DIR.name / "metrics" / f"{name}.py"
-    mod_name = "xfeat_bench_metric_" + name.replace(".", "_").replace("-", "_")
+def _load(kind: str, name: str, root: Path) -> ModuleType:
+    """`<kind>/<name>.py` of the benchmark under `root`, loaded by its path
+    (names hold dots and dashes) and registered in `sys.modules`, as the
+    dataclasses it defines need."""
+    path = Path(root) / BENCH_DIR.name / kind / f"{name}.py"
+    mod_name = f"xfeat_bench_{kind}_" + name.replace(".", "_").replace("-",
+                                                                      "_")
     loaded = importlib.util.spec_from_file_location(mod_name, path)
     if loaded is None or not path.exists():
-        raise FileNotFoundError(f"no reader {path} for metric {name!r}")
+        raise FileNotFoundError(f"no file {path} for {kind} {name!r}")
     module = importlib.util.module_from_spec(loaded)
+    sys.modules[mod_name] = module
     loaded.loader.exec_module(module)
     return module
+
+
+def metric_reader(name: str, root: Path = ROOT) -> ModuleType:
+    """`metrics/<name>.py`: `read(run)` -> the metric, or None."""
+    return _load("metrics", name, root)
+
+
+def pipeline(name: str, root: Path = ROOT) -> ModuleType:
+    """`pipelines/<name>.py`: a configuration's request kinds, the
+    program's entries and their control, and the check (see
+    `pipelines/xfeat.py`)."""
+    return _load("pipelines", name, root)

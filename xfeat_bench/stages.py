@@ -218,25 +218,18 @@ def measure(cell_name: str, seed: int, seconds: float, device="cuda",
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from xfeat_bench import harness, inputs, spec as spec_mod
-    from xfeat_bench.program import Program
+    from xfeat_bench import harness
     from xfeat_bench.readers import idle_pct, launches_per_request
 
-    overrides = overrides or {}
-    spec = spec_mod.load(root)
-    cell = spec_mod.cell(spec, cell_name)
-    config = harness._deep_update(spec_mod.config(spec, cell["config"], root),
-                                  overrides.get("config", {}))
-    traffic = harness._deep_update(spec_mod.traffic(cell["traffic"], root),
-                                   overrides.get("traffic", {}))
+    c = harness.open_cell(cell_name, root, overrides)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
-    prog = Program(config, root, dev)
-    views = inputs.Views(root / traffic["views"], traffic["pairs_file"],
-                         overrides.get("crop_hw"))
-    requests = harness.make_requests(traffic, config, views, seed, dev, root)
+    prog = c.pipeline.Program(c.config, root, dev)
+    requests = c.pipeline.make_requests(c.traffic, c.config, c.views, seed,
+                                        dev, root)
     tracer = trace_mod.Tracer()
-    execute = harness.Executor(prog, config, traffic, dev, tracer, views.hw)
+    execute = c.pipeline.Executor(prog, c.config, c.traffic, dev, tracer,
+                                  c.views.hw)
     with torch.inference_mode():
         for req in requests:
             execute(req)
@@ -260,7 +253,7 @@ def measure(cell_name: str, seed: int, seconds: float, device="cuda",
     trace = trace_mod.read_profile(prof)
     stages = read_stages(prof)
     del prof
-    per = "images" if traffic["request"] == "images" else "pairs"
+    per = "images" if c.traffic["request"] == "images" else "pairs"
     units = sum(getattr(r, per) for r in done)
     window = trace.window()
     run = harness.Traced(trace, window, done)

@@ -1,8 +1,11 @@
 """One run of each cell on the CPU at a tiny size, through the port's CPU
-path: `correct` comes out true. Then the same runs with the timed path
-broken underneath (half of the batch left out; one answer altered where
-it is produced), and with the control (the reference at TF32) in the
-program's place: `correct` comes out false."""
+path: `correct` comes out true, and every number compared equals, to the
+bit, what the same run read on commit
+84259caaa7eac0754cde8600687cf4adebc75c3a, before the harness found its
+request kinds, entries and check in a pipeline file. Then the same runs
+with the timed path broken underneath (half of the batch left out; one
+answer altered where it is produced), and with the control (the
+reference at TF32) in the program's place: `correct` comes out false."""
 
 import pytest
 import torch
@@ -11,7 +14,6 @@ from accelerated_features_tpu_torch.models import lighterglue as port_lg
 from accelerated_features_tpu_torch.ops import extraction as port_ex
 from accelerated_features_tpu_torch.ops.cuda import mnn as port_mnn
 from xfeat_bench.harness import run_cell
-from xfeat_bench.program import Control
 
 SEED = 2 ** 31 + 77
 CROP = (96, 128)
@@ -24,6 +26,23 @@ TINY = {
                            "distinct_requests": 2, "top_k": 64},
     "lg.pairs-k1024-b32": {"pairs_per_request": 2, "distinct_requests": 2,
                            "top_k": 32},
+}
+
+CHECKS_AT_84259CA = {
+    "sparse.extract-b64": {"select_gap": 0.0,
+                           "score_gap": 1.1622905731201172e-06,
+                           "desc_gap": 6.109476089477539e-07},
+    "lg.pairs-k4096-b8": {"select_gap": 0.0,
+                          "score_gap": 1.4007091522216797e-06,
+                          "desc_gap": 6.258487701416016e-07,
+                          "matcher_gap": 0.0,
+                          "mscore_gap": 2.384185791015625e-07},
+    "sparse.mnn-block50": {"mnn_gap": 0.0},
+    "lg.pairs-k1024-b32": {"select_gap": 0.0,
+                           "score_gap": 1.4007091522216797e-06,
+                           "desc_gap": 5.252659320831299e-07,
+                           "matcher_gap": 0.0,
+                           "mscore_gap": 8.642673492431641e-07},
 }
 
 
@@ -46,6 +65,8 @@ def test_one_request_of_each_cell(cell):
     assert r["attempted"] >= 2 and r["failed"] == 0
     assert list(r)[-1] == "checks" and r["checks"]
     assert "setup_s" in r["metrics"] and "request_ms_p95" in r["metrics"]
+    assert {k: c["value"] for k, c in r["checks"].items()} == \
+        CHECKS_AT_84259CA[cell]
 
 
 def test_a_traced_run_reads_per_layer_metrics():
@@ -142,14 +163,14 @@ def test_a_broken_timed_path_is_not_correct(monkeypatch, cell, module, name,
 @pytest.mark.parametrize("cell", ["sparse.extract-b64", "lg.pairs-k4096-b8",
                                   "lg.pairs-k1024-b32"])
 def test_the_control_is_not_correct(cell):
-    r = _run(cell, program=Control)
+    r = _run(cell, program="Control")
     assert not r["correct"], r["checks"]
 
 
 def test_the_control_is_not_correct_for_mnn():
     # TF32 flips mutual matches only where two similarities lie within its
     # rounding: a block of six views at 1024 points has such rows
-    r = _run("sparse.mnn-block50", program=Control, crop=(288, 384),
+    r = _run("sparse.mnn-block50", program="Control", crop=(288, 384),
              traffic={"views_per_block": 6, "pairs_per_chunk": 8,
                       "distinct_requests": 1, "top_k": 1024})
     assert not r["correct"], r["checks"]

@@ -1,7 +1,8 @@
-"""A configuration, a traffic mix and a per-layer metric are found by
-the name `BENCHMARK.json` gives them: adding them in a copy of the
-benchmark adds files and entries and edits no file that is there. Also
-holds `BENCHMARK.json` to the shape its readers expect."""
+"""A configuration, a traffic mix, a per-layer metric and a pipeline are
+found by the name `BENCHMARK.json` or the configuration gives them:
+adding them in a copy of the benchmark adds files and entries and edits
+no file that is there. Also holds `BENCHMARK.json` to the shape its
+readers expect."""
 
 import hashlib
 import json
@@ -9,9 +10,11 @@ import re
 import shutil
 from pathlib import Path
 
+import pytest
 import torch
 
-from xfeat_bench import harness, spec
+from accelerated_features_tpu_torch.models import lighterglue as port_lg
+from xfeat_bench import check, harness, spec
 
 ROOT = Path(__file__).resolve().parents[2]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -56,12 +59,17 @@ def test_benchmark_json_shape():
         assert spec.per_layer(b, cell), cell
 
 
-def test_an_addition_is_found_by_name(tmp_path):
+def _copy(tmp_path: Path):
+    """The benchmark copied under `tmp_path`, and its files' digests."""
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(ROOT / "xfeat_bench", tmp_path / "xfeat_bench",
                     ignore=shutil.ignore_patterns("__pycache__", "_cache"))
     (tmp_path / "artifacts").symlink_to(ROOT / "artifacts")
-    before = _digests(tmp_path / "xfeat_bench")
+    return _digests(tmp_path / "xfeat_bench")
+
+
+def test_an_addition_is_found_by_name(tmp_path):
+    before = _copy(tmp_path)
 
     bench = tmp_path / "xfeat_bench"
     cfg = json.loads((bench / "configs" / "xfeat-sparse.json").read_text())
@@ -105,3 +113,97 @@ def test_an_addition_is_found_by_name(tmp_path):
     assert result["correct"]
     assert result["metrics"]["requests.images"]["value"] == \
         result["attempted"]
+
+
+# A pipeline of its own, in new files only: the `xfeat` pipeline's
+# LighterGlue path, judged under a check name of its own.
+SEEDED_PIPELINE = '''"""LighterGlue pairs as `xfeat` runs them; the
+matcher's gap under a name of its own."""
+from pathlib import Path
+
+from xfeat_bench import spec
+
+base = spec.pipeline("xfeat", Path(__file__).resolve().parents[2])
+make_requests, Executor = base.make_requests, base.Executor
+Program, Control = base.Program, base.Control
+LIMITS = {"seeded_matcher_gap": 2e-3}  # card: lower 6.68e-5, upper 3.03e-3
+
+
+def judge(*args):
+    numbers, work = base.judge(*args)
+    numbers["seeded_matcher_gap"] = numbers.pop("matcher_gap")
+    return numbers, work
+'''
+
+
+def _altered_matches(fn):
+    def broken(*a, **k):
+        out = dict(fn(*a, **k))
+        m = out["matches0"].clone()
+        row = int(torch.nonzero(m[0] >= 0)[0, 0])
+        m[0, row] = (m[0, row] + 1) % m.shape[1]
+        out["matches0"] = m
+        return out
+    return broken
+
+
+@pytest.fixture(scope="module")
+def seeded_copy(tmp_path_factory):
+    """A copy with a pipeline, a configuration with `{"seed": 3}` matcher
+    weights and a cell added; one request of two pairs."""
+    root = tmp_path_factory.mktemp("seeded")
+    before = _copy(root)
+    bench = root / "xfeat_bench"
+    (bench / "pipelines" / "seeded-lg.py").write_text(SEEDED_PIPELINE)
+    cfg = json.loads((bench / "configs" / "xfeat-lighterglue.json")
+                     .read_text())
+    cfg.update(name="xfeat-seeded-lg", pipeline="seeded-lg")
+    cfg["weights"]["matcher"] = {"seed": 3}
+    (bench / "configs" / "xfeat-seeded-lg.json").write_text(json.dumps(cfg))
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    b["configs"].append({"name": "xfeat-seeded-lg", "source": "test",
+                         "file": "xfeat_bench/configs/xfeat-seeded-lg.json",
+                         "reduced": [], "why": "test"})
+    b["workloads"].append({"name": "seeded.pairs-b2",
+                           "config": "xfeat-seeded-lg",
+                           "traffic": "pairs-k4096-b8", "chips": 1,
+                           "why": "test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    after = _digests(bench)
+    assert {k: v for k, v in after.items() if k in before} == before
+    return root
+
+
+def _seeded_run(root, program="Program"):
+    torch.set_num_threads(2)
+    return harness.run_cell(
+        "seeded.pairs-b2", 11, 0.05, False, "cpu", root=root,
+        overrides={"crop_hw": (96, 128),
+                   "traffic": {"pairs_per_request": 2,
+                               "distinct_requests": 1, "top_k": 64}},
+        program=program)
+
+
+def test_a_pipeline_with_seeded_weights_is_found_by_name(seeded_copy):
+    r = _seeded_run(seeded_copy)
+    assert r["correct"], r["checks"]
+    assert "seeded_matcher_gap" in r["checks"]
+    assert "matcher_gap" not in r["checks"]
+
+
+def test_the_seeded_pipeline_fails_its_control_and_a_broken_path(
+        seeded_copy, monkeypatch):
+    assert not _seeded_run(seeded_copy, "Control")["correct"]
+    monkeypatch.setattr(port_lg, "lighterglue_forward",
+                        _altered_matches(port_lg.lighterglue_forward))
+    r = _seeded_run(seeded_copy)
+    assert not r["correct"]
+    assert r["checks"]["seeded_matcher_gap"]["value"] > \
+        r["checks"]["seeded_matcher_gap"]["limit"]
+
+
+def test_a_limit_defined_twice_is_refused():
+    with pytest.raises(ValueError, match="defined twice"):
+        check.verdict({"matcher_gap": 0.0}, {"matcher_gap": 1.0})
+    with pytest.raises(KeyError, match="no limit"):
+        check.verdict({"other_gap": 0.0}, {})

@@ -55,9 +55,15 @@ def test_the_reference_imports_nothing_of_the_program():
 
 
 def test_only_the_program_module_imports_the_port():
-    """Of the harness, `program.py` alone; of the tests, the comparison
-    with the reference and the runs that break the port's entries."""
+    """Of the harness, `program.py` and the pipelines; of the tests, the
+    comparison with the reference and the runs that break the port's
+    entries."""
     users = {str(p.relative_to(BENCH)) for p in modules()
              if PORT in top_level_imports(p.read_text())}
-    assert users == {"program.py", "tests/test_xfeat_bench_reference.py",
-                     "tests/test_xfeat_bench_cells.py"}
+    pipelines = {str(p.relative_to(BENCH))
+                 for p in (BENCH / "pipelines").glob("*.py")}
+    assert "pipelines/xfeat.py" in pipelines
+    assert users - pipelines == {"program.py",
+                                 "tests/test_xfeat_bench_reference.py",
+                                 "tests/test_xfeat_bench_cells.py",
+                                 "tests/test_xfeat_bench_discovery.py"}
