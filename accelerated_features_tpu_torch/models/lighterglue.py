@@ -1,27 +1,43 @@
 """LighterGlue, the attention-based sparse matcher, in PyTorch (counterpart
-of the JAX package's `models/lighterglue.py`, inference only).
+of the JAX package's `models/lighterglue.py`, inference only), and
+LightGlue at its published widths on the same path.
 
-A 6-layer, 1-head, 96-D LightGlue variant over 64-D XFeat descriptors:
+`DEFAULT_CONF` is LighterGlue: 6 layers, 1 head, 96-D, over 64-D XFeat
+descriptors. `LIGHTGLUE_CONF` is LightGlue's published `default_conf`
+(Lindenberger et al., ICCV 2023; cvg/LightGlue `lightglue/lightglue.py`):
+256-D, 9 layers, 4 heads of 64, depth confidence 0.95, width confidence
+0.99, over the same 64-D descriptors (`input_proj` 64 -> 256). Both:
 keypoints normalized by image size, a learnable Fourier encoding applied
-as rotary cos/sin to q and k in self-attention; per layer a self-attention
-block and a cross-attention block, each with a residual GELU MLP over
-[x, message]; an assignment head (matchability + scaled similarity, log
-double-softmax with dustbins) and a mutual-argmax filter.
+as rotary cos/sin to q and k in self-attention (an encoding of head
+width, as published, rotates each head's slice; one of full width, as
+the JAX package's multi-head forward takes it, the whole of q and k);
+per layer a self-attention block and a cross-attention block, each with a
+residual GELU MLP over [x, message]; an assignment head (matchability +
+scaled similarity, log double-softmax with dustbins) and a mutual-argmax
+filter.
 
 Keypoint sets are fixed-shape (B, M) with validity masks: padded slots
 attend nowhere and match nothing. Width-confidence pruning is MASKED, as
 in the JAX package: a point whose matchability under layer i's assignment
 head is <= 1 - width_confidence leaves every later attention and the
-final assignment through the masks; nothing is gathered. Depth early exit
-stays off, so `token_confidence` weights are carried but never read.
+final assignment through the masks; nothing is gathered. With depth
+confidence on, after every layer but the last each pair that is not done
+yet computes its points' token confidence and stops, as published, once
+the share of confident points of its original m + n (a pruned point
+counts as confident) exceeds `depth_confidence`; a low-confidence point
+is never pruned. Each pair of a batch exits on its own: every layer runs
+for the whole batch (no host sync), a pair keeps the descriptors of the
+layer it stopped at, and its assignment comes from that layer's head.
 
 On CUDA tensors every attention runs kernel D (`ops/cuda/attention.py`),
 at every size; on CPU tensors its plain version. Under a profiler,
 `lighterglue_forward` is the range `xfeat.lighterglue`, holding
-`.embed`, `.self` (two a layer), `.cross`, `.prune` (a layer, when
-pruning) and `.assign` (`utils.profiling.span`). The parameter tree keeps
-the JAX package's nesting with torch layouts (`models.params.
-load_lighterglue_params`): linear weights (out, in), `posenc_wr` (2, D/2).
+`.embed`, `.self` (two a layer), `.cross`, `.confidence` (a layer but the
+last, with depth confidence on), `.prune` (a layer, when pruning) and
+`.assign` (`utils.profiling.span`). The parameter tree keeps the JAX
+package's nesting with torch layouts (`models.params.
+load_lighterglue_params`): linear weights (out, in), `posenc_wr`
+(2, head_dim/2).
 """
 
 from __future__ import annotations
@@ -48,6 +64,19 @@ DEFAULT_CONF = {
     # depth confidence off, width confidence 0.95, engaged above 1536
     # keypoints (the published configuration)
     "width_confidence": 0.95,
+    "pruning_min_kpts": 1536,
+}
+
+# LightGlue's published default_conf; input_dim is XFeat's descriptor width
+# and pruning_min_kpts the published threshold for flash attention
+LIGHTGLUE_CONF = {
+    "input_dim": 64,
+    "descriptor_dim": 256,
+    "n_layers": 9,
+    "num_heads": 4,
+    "filter_threshold": 0.1,
+    "depth_confidence": 0.95,
+    "width_confidence": 0.99,
     "pruning_min_kpts": 1536,
 }
 
@@ -267,8 +296,17 @@ def _ffn(p: Dict[str, Any], x: torch.Tensor,
 
 def _self_block(p, x, cos, sin, mask, heads):
     q, k, v = _apply(p["qkv"], x).chunk(3, dim=-1)
-    ctx = _attention(apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v,
-                     mask, heads)
+    if cos.shape[-1] == q.shape[-1]:
+        # a full-width encoding, as the JAX package applies it at any head
+        # count (and every encoding at one head)
+        q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
+    else:
+        # a head-width encoding, as published LightGlue's: q and k are
+        # head-major (`_qkv_row_perm`), so each head's slice rotates with it
+        cos, sin = cos[..., None, :], sin[..., None, :]
+        q, k = (apply_rotary(t.unflatten(-1, (heads, -1)), cos, sin)
+                .flatten(-2) for t in (q, k))
+    ctx = _attention(q, k, v, mask, heads)
     return _ffn(p, x, _apply(p["out"], ctx))
 
 
@@ -306,6 +344,26 @@ def get_matchability(asg_params: Dict[str, Any],
     return torch.sigmoid(_apply(asg_params["matchability"], x)[..., 0])
 
 
+def confidence_threshold(layer: int, n_layers: int) -> float:
+    """The published token-confidence threshold after `layer`."""
+    return float(np.clip(0.8 + 0.1 * np.exp(-4.0 * layer / n_layers), 0, 1))
+
+
+def _exit_head(asgs, exit_layer: torch.Tensor, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each pair's final projection (scaled by d^-1/4) and matchability
+    logits under the assignment head of the layer it stopped at
+    (`exit_layer` (B,), 0-based): the heads stacked and gathered by pair."""
+    def stacked(name, key):
+        return torch.stack([a[name][key] for a in asgs])[exit_layer]
+
+    proj = torch.baddbmm(stacked("final_proj", "b")[:, None, :], x,
+                         stacked("final_proj", "w").transpose(1, 2))
+    z = torch.baddbmm(stacked("matchability", "b")[:, None, :], x,
+                      stacked("matchability", "w").transpose(1, 2))
+    return proj / x.shape[-1] ** 0.25, z[..., 0]
+
+
 def filter_matches_from_scores(scores: torch.Tensor, m: int, n: int
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mutual argmax over the (M,N) part of the log assignment; confidence
@@ -328,20 +386,26 @@ def lighterglue_forward(params: Dict[str, Any], kpts0: torch.Tensor,
                         mask0: Optional[torch.Tensor] = None,
                         mask1: Optional[torch.Tensor] = None,
                         heads: int = 1, width_confidence: float = -1.0,
-                        pruning_min_kpts: int = 1536
+                        pruning_min_kpts: int = 1536,
+                        depth_confidence: float = -1.0
                         ) -> Dict[str, torch.Tensor]:
     """Run the matcher on batched tensors; masks select real keypoints.
 
     `width_confidence` > 0 turns on masked point pruning (module
     docstring) when max(M, N) > `pruning_min_kpts`; a pruned point never
-    returns and ends unmatched with score 0.
+    returns and ends unmatched with score 0. `depth_confidence` > 0 turns
+    on each pair's early exit (module docstring), which reads
+    `params["token_confidence"][i]` after layer i < n_layers - 1.
 
     Returns log_assignment (B,M+1,N+1), matches0 (B,M) int64 index into
     image 1 or -1, mscores0 (B,M), keep0 (B,M) / keep1 (B,N) bool, the
     real points that were never pruned, and prune_margin0 (B,M) /
-    prune_margin1 (B,N): how close each point's matchability came to the
-    pruning threshold while the point was still kept (inf without
-    pruning), which tells where two float32 runs may decide differently."""
+    prune_margin1 (B,N): how close each point's pruning decision came to
+    going the other way while the point was still kept (matchability
+    against its threshold, and with depth confidence on the larger of that
+    and the token confidence below its threshold; inf without pruning),
+    which tells where two float32 runs may decide differently. With depth
+    confidence on, also layers (B,) int64: the layers each pair ran."""
     with span("xfeat.lighterglue"):
         b, m, _ = kpts0.shape
         n = kpts1.shape[1]
@@ -360,10 +424,18 @@ def lighterglue_forward(params: Dict[str, Any], kpts0: torch.Tensor,
                 normalize_keypoints(kpts1.float(), size1), params["posenc_wr"])
 
         do_prune = width_confidence > 0 and max(m, n) > pruning_min_kpts
+        do_exit = depth_confidence > 0
         keep = [mask0, mask1]
         margin = [torch.full((b, m), float("inf"), device=dev),
                   torch.full((b, n), float("inf"), device=dev)]
         n_layers = len(params["layers"])
+        if do_exit:
+            # a pair stopped after layer i holds i + 1 and its descriptors
+            # of that layer in `held`
+            layers = torch.full((b,), n_layers, dtype=torch.int64, device=dev)
+            done = torch.zeros((b,), dtype=torch.bool, device=dev)
+            points = (mask0.sum(1) + mask1.sum(1)).float()
+            held = [x0, x1]
         for i, layer in enumerate(params["layers"]):
             with span("xfeat.lighterglue.self"):
                 x0 = _self_block(layer["self"], x0, cos0, sin0, keep[0], heads)
@@ -372,34 +444,68 @@ def lighterglue_forward(params: Dict[str, Any], kpts0: torch.Tensor,
             with span("xfeat.lighterglue.cross"):
                 x0, x1 = _cross_block(layer["cross"], x0, x1, keep[0], keep[1],
                                       heads)
-            if do_prune and i < n_layers - 1:
+            if i == n_layers - 1:
+                continue
+            if do_exit:
+                with span("xfeat.lighterglue.confidence"):
+                    thr = confidence_threshold(i, n_layers)
+                    conf = [torch.sigmoid(_apply(
+                        params["token_confidence"][i], x)[..., 0])
+                        for x in (x0, x1)]
+                    unsure = ((conf[0] < thr) & keep[0]).sum(1) \
+                        + ((conf[1] < thr) & keep[1]).sum(1)
+                    stop = ((1.0 - unsure.float() / points)
+                            > depth_confidence) & ~done
+                    layers = torch.where(stop, i + 1, layers)
+                    held = [torch.where(stop[:, None, None], x, h)
+                            for x, h in zip((x0, x1), held)]
+                    done = done | stop
+                    # a low-confidence point is never pruned, nor a point
+                    # of a pair that stopped
+                    low = [thr - c for c in conf]
+            if do_prune:
                 with span("xfeat.lighterglue.prune"):
                     for side, x in enumerate((x0, x1)):
                         over = get_matchability(params["assignments"][i], x) \
                             - (1.0 - width_confidence)
+                        stays = over > 0
+                        live = keep[side]
+                        if do_exit:
+                            stays = stays | (low[side] >= 0) | done[:, None]
+                            over = torch.maximum(over, low[side])
+                            live = live & ~done[:, None]
                         margin[side] = torch.where(
-                            keep[side],
-                            torch.minimum(margin[side], over.abs()),
+                            live, torch.minimum(margin[side], over.abs()),
                             margin[side])
-                        keep[side] = keep[side] & (over > 0)
+                        keep[side] = keep[side] & stays
         keep0, keep1 = keep
 
         with span("xfeat.lighterglue.assign"):
-            asg = params["assignments"][-1]
-            dim = x0.shape[-1]
-            md0 = _apply(asg["final_proj"], x0) / dim ** 0.25
-            md1 = _apply(asg["final_proj"], x1) / dim ** 0.25
-            sim = torch.matmul(md0, md1.transpose(1, 2))
-            z0 = _apply(asg["matchability"], x0)[..., 0]
-            z1 = _apply(asg["matchability"], x1)[..., 0]
+            if do_exit:
+                x0, x1 = (torch.where(done[:, None, None], h, x)
+                          for x, h in zip((x0, x1), held))
+                md0, z0 = _exit_head(params["assignments"], layers - 1, x0)
+                md1, z1 = _exit_head(params["assignments"], layers - 1, x1)
+                sim = torch.matmul(md0, md1.transpose(1, 2))
+            else:
+                asg = params["assignments"][-1]
+                dim = x0.shape[-1]
+                md0 = _apply(asg["final_proj"], x0) / dim ** 0.25
+                md1 = _apply(asg["final_proj"], x1) / dim ** 0.25
+                sim = torch.matmul(md0, md1.transpose(1, 2))
+                z0 = _apply(asg["matchability"], x0)[..., 0]
+                z1 = _apply(asg["matchability"], x1)[..., 0]
             scores = sigmoid_log_double_softmax(sim, z0, z1, keep0, keep1)
             m0, ms0 = filter_matches_from_scores(scores, m, n)
             if do_prune:
                 m0 = torch.where(keep0, m0, -1)
                 ms0 = torch.where(keep0, ms0, 0.0)
-        return {"log_assignment": scores, "matches0": m0, "mscores0": ms0,
-                "keep0": keep0, "keep1": keep1,
-                "prune_margin0": margin[0], "prune_margin1": margin[1]}
+        out = {"log_assignment": scores, "matches0": m0, "mscores0": ms0,
+               "keep0": keep0, "keep1": keep1,
+               "prune_margin0": margin[0], "prune_margin1": margin[1]}
+        if do_exit:
+            out["layers"] = layers
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -466,7 +572,8 @@ class LighterGlue:
             self._padded(d0["descriptors"], k),
             self._padded(d1["descriptors"], k), size(d0), size(d1),
             ar < n0, ar < n1, heads=self.conf["num_heads"],
-            width_confidence=wc, pruning_min_kpts=0)
+            width_confidence=wc, pruning_min_kpts=0,
+            depth_confidence=self.conf.get("depth_confidence", -1.0))
 
     @torch.inference_mode()
     def match(self, d0: Mapping[str, Any], d1: Mapping[str, Any],

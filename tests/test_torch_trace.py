@@ -39,18 +39,19 @@ def _inputs():
 
 
 def _calls(params, x):
-    def lighterglue(prune):
+    def lighterglue(prune, depth=-1.0):
         # pruning_min_kpts=0 turns pruning on at 32 points
         return lg.lighterglue_forward(
             x["lg_params"], x["kpts"][0], x["kpts"][1], x["descs"][0],
             x["descs"][1], x["size"], x["size"], x["valid"][0],
             x["valid"][1], width_confidence=0.95 if prune else -1.0,
-            pruning_min_kpts=0)
+            pruning_min_kpts=0, depth_confidence=depth)
 
     return {
         "extract": lambda: detect_and_compute(params, x["images"], 32, 0.0),
         "lighterglue": lambda: lighterglue(True),
         "lighterglue-unpruned": lambda: lighterglue(False),
+        "lighterglue-depth": lambda: lighterglue(True, 0.95),
         "mnn": lambda: dict(zip(("idx1", "mask"), batch_mnn_match_fused(
             x["descs"][0], x["descs"][1], x["valid"][0], x["valid"][1]))),
     }
@@ -145,13 +146,35 @@ def test_lighterglue_ranges_per_layer(runs, entry, pruned):
     assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))
 
 
+def test_lighterglue_confidence_range_only_with_depth(runs):
+    """With depth confidence on, `.confidence` (token confidence, exit
+    decision, the gate's confidence term) once a layer but the last,
+    between the layer's cross-attention and its pruning; never without."""
+    _, _, ranges = runs["lighterglue-depth"]
+    names = [r[0] for r in ranges]
+    assert all(_inside(ranges[0], r) for r in ranges[1:])
+    expect = ["embed"]
+    for i in range(N_LAYERS):
+        expect += ["self", "self", "cross"]
+        if i < N_LAYERS - 1:
+            expect += ["confidence", "prune"]
+    expect.append("assign")
+    assert names[1:] == ["xfeat.lighterglue." + s for s in expect]
+    inner = ranges[1:]
+    assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))
+    for entry in ("lighterglue", "lighterglue-unpruned"):
+        assert "xfeat.lighterglue.confidence" not in \
+            [r[0] for r in runs[entry][2]]
+
+
 def test_mnn_range(runs):
     _, _, ranges = runs["mnn"]
     assert [r[0] for r in ranges] == ["xfeat.mnn"]
 
 
 @pytest.mark.parametrize("entry", ["extract", "lighterglue",
-                                   "lighterglue-unpruned", "mnn"])
+                                   "lighterglue-unpruned", "mnn",
+                                   "lighterglue-depth"])
 def test_outputs_equal_to_the_bit_under_a_profiler(runs, entry):
     plain, traced, _ = runs[entry]
     assert plain.keys() == traced.keys()
