@@ -2,45 +2,62 @@
 //
 // Replaces the TPU kernel `_attn_kernel` in
 // accelerated_features_tpu/ops/pallas/attention.py (entered through
-// flash_attention; LighterGlue's self- and cross-attention). For each batch
-// item it computes out[i,:] = sum_j softmax_j(scale * q[i].k[j]) v[j,:] in
-// float32 with the online-softmax recurrence over key tiles, so the Nq x Nk
-// score matrix never reaches device memory. Masked keys score -1e9 (never
-// -inf): a row whose keys are all masked gets the mean of V over its Nk
-// keys, as the plain version gives. Keys beyond Nk do not exist.
+// flash_attention; LighterGlue's and LightGlue's self- and cross-attention).
+// For each batch item it computes out[i,:] = sum_j softmax_j(scale *
+// q[i].k[j]) v[j,:] in float32 with the online-softmax recurrence over key
+// tiles, so the Nq x Nk score matrix never reaches device memory. Masked
+// keys score -1e9 (never -inf): a row whose keys are all masked gets the
+// mean of V over its Nk keys, as the plain version gives. Keys beyond Nk do
+// not exist.
 //
 // Bound on the H100: operations. At Nq = Nk = 4096, D = 96 it does
 // 4*Nq*Nk*D = 6.4 GFLOP against ~6 MB of q, k, v and out. The output is
 // held to 2e-5, so both products run on the tensor cores at float32 grade
-// as 3xTF32 (tf32x3.cuh): three m16n8k8 TF32 products an output, which
-// makes the least time 3 * 4*Nq*keys*D / 495 TFLOP/s. The operands are
-// split by cutting (split_cut, two instructions an element): its error,
-// ~2^-20 of a product, is far inside the gate, and the splitting is most of
-// what the kernel executes beside the products.
+// as 3xTF32 (tf32x3.cuh): three TF32 products an output, which makes the
+// least time 3 * 4*Nq*keys*D / 495 TFLOP/s. The operands are split by
+// cutting (split_cut: the head is x itself, the tail x minus x cut to
+// TF32; its error, ~2^-20 of a product, is far inside the gate).
 //
-// Design: a block of eight warps owns 128 query rows, staged once in shared
-// memory, and walks 64-key tiles of K and V that arrive by cp.async in a
-// ring of three stages, so the next tiles load while this one is
-// multiplied. Rows are padded to D+4 floats, which puts a warp's fragment
-// loads of Q, K and V on 32 different banks. A warp owns 16 rows: it
-// computes their 16x64 scores (fragments split into hi and lo in
-// registers), and keeps the online softmax in registers in the accumulator
-// layout, where a row lies in the four threads of a quad: the row max takes
-// two shuffles a tile, the row sum is kept per thread and summed over the
-// quad once at the end. The softmax runs in base 2 (scores times
-// scale * log2 e, ex2 on the special-function unit). The probabilities
-// never leave the registers: the score accumulator of an 8-key MMA tile
-// holds keys 2t and 2t+1 where the A fragment of P.V wants k-slots t and
-// t+4, and since the key index is summed over, V's rows are read in that
-// order (slot t is key 2t, slot t+4 is key 2t+1). A key tile in which every
-// key is masked is skipped when the batch item has an unmasked key
-// somewhere (its keys then weigh exactly 0); an item with no unmasked key
-// runs every tile and gets the mean of V. Mask bytes are read a tile ahead
-// into a register, so nothing in the loop waits for device memory. One
-// image pair gives only Nq/128 query tiles, fewer than the card has SMs, so
-// the keys are also split over blockIdx.y, about one block an SM: each
-// split writes its unnormalised (m, l, acc) and a small second kernel
-// merges them. With one split the block writes the output itself.
+// attn_partial_kernel<D> (D = 32, 64: LightGlue's heads; 96: LighterGlue's
+// one head) runs both products as warpgroup products (wgmma), which alone
+// reach the tensor cores' full rate; mma.sync TF32 stops at ~0.64 of it on
+// this card. A block of 384 threads owns 128 query rows:
+//   - a producer warpgroup (lowered to 40 registers by setmaxnreg) brings
+//     each key tile of K and V (64 keys; 32 at D = 96, where two stages of
+//     64-key planes and raw tiles would not fit in shared memory) into a ring
+//     of two raw stages with two bulk copies (one thread, completion counted
+//     on an mbarrier), reads the tile's mask bytes, and splits every element
+//     once into TF32 head and tail planes in a ring of two plane stages: K as
+//     stored (K-major) and V transposed, since TF32 wgmma takes only K-major
+//     B operands. Within each 8-key group V^T's slots follow the order in
+//     which the score accumulator holds P (slot t is key 2t, slot t+4 is key
+//     2t+1). Beside the planes it writes per-key codes (1 attend, 0 masked,
+//     -1 beyond Nk), then fence.proxy.async and an arrive on the stage's
+//     `full` mbarrier;
+//   - two consumer warpgroups of 64 rows (raised to 232 registers) split
+//     their Q rows once into head and tail A fragments held in registers. For
+//     each tile: S = three m64nBk8 products a k-step (B the tile's keys;
+//     tail.head, head.tail, head.head, the small terms first), the base-2
+//     online softmax in registers in the accumulator layout (a row lies in
+//     the four threads of a quad), P split in place into A fragments, then O
+//     += three m64nDk8 products a step of 8 keys on the V^T planes, and an
+//     arrive on the stage's `empty` mbarrier. The two take turns at S (named
+//     barriers), so one's softmax runs beside the other's products.
+// So no warp re-splits a tile that another has split, Q is split once, the
+// B operands come from shared memory without a load instruction, and no
+// thread issues a copy per 16 bytes. What bounds it is the tensor rate of
+// the products, the producer's split (~8% of the time at LightGlue's
+// shape) and, from the consumers' side, the wait for each product group
+// before its softmax or the next tile.
+//
+// A key tile in which every key is masked is skipped when the batch item
+// has an unmasked key somewhere (its keys then weigh exactly 0); an item
+// with no unmasked key runs every tile and gets the mean of V. One image
+// pair gives only Nq/128 query tiles, fewer than the card has SMs, so the
+// keys are also split over blockIdx.y, about one block an SM: each split
+// writes its unnormalised (m, l, acc) and a small second kernel,
+// attn_merge_kernel, merges them. With one split the block writes the
+// output itself.
 //
 // For training, the caller may pass `lse` (B,Nq): the row log-sum-exp of
 // the masked, scaled scores in natural log, which the backward
@@ -53,12 +70,7 @@
 
 #include "tf32x3.cuh"
 
-#define WARPS 8
-#define BM (16 * WARPS)
-#define BN 64
-#define PAD 4
-#define STAGES 3
-#define THREADS (32 * WARPS)
+#define BN 64  // keys of the tiles the key split counts
 #define NEG (-1e9f)
 #define LN2 0.6931471805599453f
 
@@ -69,266 +81,518 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <int D>
-constexpr int smem_bytes(int tiles_per_split) {
-  return (BM * (D + PAD) + STAGES * 2 * BN * (D + PAD)) * (int)sizeof(float) +
-         (STAGES * BN + tiles_per_split) * (int)sizeof(int);
-}
+// ---------------------------------------------------------------------------
+// The warpgroup kernel: one producer warpgroup, two consumer warpgroups of
+// 64 query rows. See the note at the top of the file.
 
-// s = Q_w . K_t^T for a warp's 16 query rows and a tile's 64 keys, 3xTF32:
-// term by term over the eight independent accumulators, the small terms
-// first, so no product waits for the one before it
+namespace wg {
+
+constexpr int CONSUMERS = 2;                     // warpgroups of 64 rows
+constexpr int ROWS = 64 * CONSUMERS;             // query rows of a block
+constexpr int NTHREADS = 128 * (CONSUMERS + 1);  // the producer is last
+constexpr int PLANES = 2;  // stages of split K and V^T planes
+constexpr int RAW = 2;     // stages of raw K and V tiles
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 64512 in all
+
+// Byte offsets in a block's dynamic shared memory. A plane holds one TF32
+// operand of a BK-key tile as 16-byte chunks (core-matrix rows) without
+// swizzle. K (B of Q.K^T: N = keys, K = columns): the chunk of key n and
+// columns 4kc..4kc+3 at byte kc*KLEAD + n*16, KLEAD = BK*16 + 16, so that
+// eight chunks of one key (one row of the raw tile) land on eight
+// different bank groups. V^T (B of P.V: N = columns d, K = key slots): the
+// chunk of d and slots 4kc..4kc+3 at byte (kc*D + d)*16. A raw tile is K or
+// V as stored, BK rows of D floats, brought in by one bulk copy each.
 template <int D>
-__device__ __forceinline__ void qk_scores(const float* Qw, const float* Kt,
-                                          int g, int t, float (&s)[8][4]) {
-  constexpr int LD = D + PAD;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 4
-  for (int ks = 0; ks < D / 8; ++ks) {
-    uint32_t a_hi[4], a_lo[4];
-    const float* p = Qw + ks * 8;
-    tf32x3::split_cut(p[0], a_hi[0], a_lo[0]);
-    tf32x3::split_cut(p[8 * LD], a_hi[1], a_lo[1]);
-    tf32x3::split_cut(p[4], a_hi[2], a_lo[2]);
-    tf32x3::split_cut(p[8 * LD + 4], a_hi[3], a_lo[3]);
-    uint32_t b_hi[8][2], b_lo[8][2];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float* pk = Kt + (j * 8 + g) * LD + ks * 8 + t;
-      tf32x3::split_cut(pk[0], b_hi[j][0], b_lo[j][0]);
-      tf32x3::split_cut(pk[4], b_hi[j][1], b_lo[j][1]);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) tf32x3::mma(s[j], a_lo, b_hi[j]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) tf32x3::mma(s[j], a_hi, b_lo[j]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) tf32x3::mma(s[j], a_hi, b_hi[j]);
+struct Layout {
+  // keys of a tile: 32 at D = 96, where two stages of 64-key planes and
+  // the raw tiles would not fit in shared memory
+  static constexpr int BK = D == 96 ? 32 : 64;
+  static constexpr int KLEAD = BK * 16 + 16;
+  static constexpr int KPLANE = D / 4 * KLEAD;
+  static constexpr int VPLANE = BK * D * 4;
+  static constexpr int STAGE = 2 * KPLANE + 2 * VPLANE;  // K hi, lo, V^T
+  static constexpr int RAW_TILE = 2 * BK * D * 4;        // K, then V
+  static constexpr int RAWS = PLANES * STAGE;
+  static constexpr int CODES = RAWS + RAW * RAW_TILE;        // [PLANES][BK]
+  static constexpr int RAW_CODES = CODES + PLANES * BK * 4;  // [RAW][BK]
+  // mbarriers: full and empty of each plane stage, loaded of each raw one
+  static constexpr int BARS = RAW_CODES + RAW * BK * 4;
+  static constexpr int LIVE = BARS + (2 * PLANES + RAW) * 8;
+  static constexpr int bytes(int tiles_per_split) {
+    return LIVE + 4 * tiles_per_split;
   }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-    attn_partial_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const uint8_t* __restrict__ mask,
-                        float* __restrict__ part_acc,
-                        float* __restrict__ part_ml, float* __restrict__ out,
-                        float* __restrict__ lse, int Nq, int Nk, float scale,
-                        int tiles_per_split) {
-  constexpr int LD = D + PAD;  // row stride of Q, K and V, = 4 mod 32
-  constexpr int NO = D / 8;    // 8-column MMA tiles of the output
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;            // [BM][LD]
-  float* KVs = Qs + BM * LD;   // [STAGES][K: [BN][LD], V: [BN][LD]]
-  // per stage and key: 1 attend, 0 masked, -1 beyond Nk
-  int* Ms = reinterpret_cast<int*>(KVs + STAGES * 2 * BN * LD);
-  int* live = Ms + STAGES * BN;  // per tile of this split: has an unmasked key
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-  const int b = blockIdx.z, split = blockIdx.y, r0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+// one arrival that also expects `bytes` from asynchronous copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global to shared memory by the bulk-copy
+// engine, counted on the mbarrier `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}" ::"r"(
+          bar)
+      : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed. The loop
+// lies inside one asm statement, so the compiler cannot share its blocks
+// between the producer's and the consumers' code (each has its own
+// register budget). A wait of 2^33 clocks (seconds) can only be a fault of
+// the pipeline: it traps, so the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.s64 t1, t1, t0;\n"
+      "setp.gt.s64 p, t1, 8589934592;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products or their fence (past which ptxas would
+// insert a fence of its own and serialize the products)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// descriptor of a K-major operand without swizzle: 8-row x 16-byte core
+// matrices `lead` bytes apart along K and `stride` bytes apart along N
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead,
+                                         uint32_t stride) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) |
+         ((uint64_t)(lead >> 4) << 16) | ((uint64_t)(stride >> 4) << 32);
+}
+
+// d (64 x N) += a (64 x 8, registers) . b (8 x N, shared memory) in TF32.
+// Per warp, a and d are laid out as the mma.sync fragments of tf32x3.cuh
+// (warp w owns rows 16w..16w+15). The products always accumulate: a
+// scale-d predicate taken from a register made ptxas serialize them.
+__device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4],
+                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4],
+                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4],
+                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// the TF32 tail of x under split_cut (the head is x itself)
+__device__ __forceinline__ float tail(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+}  // namespace wg
+
+template <int D>
+__global__ void __launch_bounds__(wg::NTHREADS, 1)
+    attn_partial_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const uint8_t* __restrict__ mask,
+                              float* __restrict__ part_acc,
+                              float* __restrict__ part_ml,
+                              float* __restrict__ out,
+                              float* __restrict__ lse, int Nq, int Nk,
+                              float scale, int tiles_per_split) {
+  using L = wg::Layout<D>;
+  constexpr int NO = D / 8;      // 8-column blocks of the output
+  constexpr int BK = L::BK;      // keys of a tile
+  constexpr int NK = BK / 8;     // 8-key blocks of a tile
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+  float* planes = reinterpret_cast<float*>(smem_wg);
+  float* raws = reinterpret_cast<float*>(smem_wg + L::RAWS);
+  // per plane stage and key: 1 attend, 0 masked, -1 beyond Nk; the raw
+  // stages hold the codes of the tiles on their way
+  int* codes = reinterpret_cast<int*>(smem_wg + L::CODES);
+  int* raw_codes = reinterpret_cast<int*>(smem_wg + L::RAW_CODES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_wg + L::BARS);
+  int* live = reinterpret_cast<int*>(smem_wg + L::LIVE);
+  const uint32_t full0 = wg::smem_addr(bars);
+  const uint32_t empty0 = wg::smem_addr(bars + wg::PLANES);
+  const uint32_t loaded0 = wg::smem_addr(bars + 2 * wg::PLANES);
+
+  const int b = blockIdx.z, split = blockIdx.y, r0 = blockIdx.x * wg::ROWS;
+  const int tid = threadIdx.x;
   const float* qb = q + (size_t)b * Nq * D;
   const float* kb = k + (size_t)b * Nk * D;
   const float* vb = v + (size_t)b * Nk * D;
   const uint8_t* mb = mask == nullptr ? nullptr : mask + (size_t)b * Nk;
-  const int n_tiles = (Nk + BN - 1) / BN;
+  const int n_tiles = (Nk + BK - 1) / BK;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
 
-  for (int i = tid; i < BM * (D / 4); i += THREADS) {
-    const int row = i / (D / 4), c = (i % (D / 4)) * 4;
-    const bool real = r0 + row < Nq;
-    tf32x3::cp_async16(Qs + row * LD + c,
-                       qb + (size_t)(real ? r0 + row : 0) * D + c, real);
+  if (tid == 0) {
+    for (int s = 0; s < wg::PLANES; ++s) {
+      wg::mbar_init(full0 + 8 * s, 128);                   // the producer
+      wg::mbar_init(empty0 + 8 * s, 128 * wg::CONSUMERS);  // the consumers
+    }
+    for (int s = 0; s < wg::RAW; ++s) wg::mbar_init(loaded0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-
   // which tiles may be skipped: those without an unmasked key, if the item
   // has an unmasked key at all
   bool may_skip = false;
   if (mb != nullptr) {
-    for (int i = tid; i < tiles_per_split; i += THREADS) live[i] = 0;
+    for (int i = tid; i < tiles_per_split; i += wg::NTHREADS) live[i] = 0;
     __syncthreads();
     int any = 0;
-    for (int i = tid; i < Nk; i += THREADS) {
+    for (int i = tid; i < Nk; i += wg::NTHREADS) {
       if (mb[i] != 0) {
         any = 1;
-        const int tile = i / BN;
+        const int tile = i / BK;
         if (tile >= t_begin && tile < t_end) live[tile - t_begin] = 1;
       }
     }
     may_skip = __syncthreads_or(any) != 0;
   }
+  __syncthreads();  // the barriers are initialised
   auto next_live = [&](int tile) {
     while (tile < t_end && may_skip && live[tile - t_begin] == 0) ++tile;
     return tile;
   };
 
-  int code_on_its_way = 0, code_slot = -1;
-  auto load_tile = [&](int tile, int slot) {
-    const int n0 = tile * BN;
-    float* Kt = KVs + slot * 2 * BN * LD;
-    float* Vt = Kt + BN * LD;
-    for (int i = tid; i < BN * (D / 4); i += THREADS) {
-      const int row = i / (D / 4), c = (i % (D / 4)) * 4;
-      const bool real = n0 + row < Nk;
-      const size_t src = (size_t)(real ? n0 + row : 0) * D + c;
-      tf32x3::cp_async16(Kt + row * LD + c, kb + src, real);
-      tf32x3::cp_async16(Vt + row * LD + c, vb + src, real);
-    }
-    if (tid < BN) {  // the mask byte is read now and stored a tile later
-      const int col = n0 + tid;
-      code_slot = slot;
-      code_on_its_way = col >= Nk ? -1
-                        : (mb == nullptr || mb[col] != 0) ? 1
-                                                          : 0;
-    }
-  };
-  // Store the mask code read by the last load_tile: called a tile after the
-  // read was started, so no thread waits for device memory in the loop
-  auto store_code = [&]() {
-    if (tid < BN && code_slot >= 0) Ms[code_slot * BN + tid] = code_on_its_way;
-  };
-
-  int load_t = next_live(t_begin), load_slot = 0;
-  int tile = load_t, slot = 0;
-  for (int s = 0; s < STAGES - 1; ++s) {
-    store_code();
-    if (load_t < t_end) {
-      load_tile(load_t, load_slot);
-      load_t = next_live(load_t + 1);
-    }
-    load_slot = (load_slot + 1) % STAGES;
-    tf32x3::cp_async_commit();
-  }
-
-  // this thread's rows are warp*16 + g (h = 0) and + 8 (h = 1); acc[n] holds
-  // (h=0: columns n*8 + 2t, +1), (h=1: the same columns). The softmax runs
-  // in base 2: m is the row max of score * scale * log2(e).
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const float* Qw = Qs + (warp * 16 + g) * LD + t;
-  const float scale2 = scale * 1.4426950408889634f;
-
-  while (tile < t_end) {
-    tf32x3::cp_async_wait<STAGES - 2>();
-    __syncthreads();  // this tile has landed; the previous one is computed
-    store_code();
-    if (load_t < t_end) {
-      load_tile(load_t, load_slot);
-      load_t = next_live(load_t + 1);
-    }
-    load_slot = (load_slot + 1) % STAGES;
-    tf32x3::cp_async_commit();
-
-    const float* Kt = KVs + slot * 2 * BN * LD;
-    const float* Vt = Kt + BN * LD;
-    float s[8][4];
-    qk_scores<D>(Qw, Kt, g, t, s);
-
-    // online softmax; s[j][h*2+e] is row h, key j*8 + 2t + e
-    int code[8][2];
-    float m_new[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int2 c2 =
-          *reinterpret_cast<const int2*>(Ms + slot * BN + j * 8 + 2 * t);
-      code[j][0] = c2.x;
-      code[j][1] = c2.y;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = code[j][e & 1];
-        s[j][e] = c > 0 ? s[j][e] * scale2 : NEG;
-        if (c >= 0) m_new[e >> 1] = fmaxf(m_new[e >> 1], s[j][e]);
+  if (tid >= 128 * wg::CONSUMERS) {
+    // ---- producer: raw tiles in by bulk copies, split once into the planes
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        wg::PRODUCER_REGS));
+    const int p = tid - 128 * wg::CONSUMERS;
+    const uint32_t raw0 = wg::smem_addr(raws);
+    auto load = [&](int tile, int slot) {  // thread 0 of the warpgroup
+      const int n0 = tile * BK;
+      const uint32_t bytes = min(BK, Nk - n0) * D * 4;
+      const uint32_t bar = loaded0 + 8 * slot;
+      wg::mbar_expect(bar, 2 * bytes);
+      wg::bulk_load(raw0 + slot * L::RAW_TILE, kb + (size_t)n0 * D, bytes,
+                    bar);
+      wg::bulk_load(raw0 + slot * L::RAW_TILE + L::RAW_TILE / 2,
+                    vb + (size_t)n0 * D, bytes, bar);
+    };
+    auto code_of = [&](int tile) {
+      const int col = tile * BK + p;
+      return col >= Nk ? -1 : (mb == nullptr || mb[col] != 0) ? 1 : 0;
+    };
+    int load_t = next_live(t_begin);
+    for (int s = 0; s < wg::RAW; ++s) {
+      if (load_t < t_end) {
+        if (p == 0) load(load_t, s);
+        if (p < BK) raw_codes[s * BK + p] = code_of(load_t);
+        load_t = next_live(load_t + 1);
       }
     }
-    float corr[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
-      m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
-      corr[h] = fast_exp2(m[h] - m_new[h]);
-      m[h] = m_new[h];
+    int slot = 0, ps = 0;
+    uint32_t phase = 0, raw_phase = 0;
+    for (int tile = next_live(t_begin); tile < t_end;
+         tile = next_live(tile + 1)) {
+      // the mask byte of the tile loaded at the end of this step, read now
+      const int next_code = p < BK && load_t < t_end ? code_of(load_t) : 0;
+      const int valid = min(BK, Nk - tile * BK);  // keys of the tile
+      wg::mbar_wait(loaded0 + 8 * slot, raw_phase);  // the tile is in
+      wg::mbar_wait(empty0 + 8 * ps, phase ^ 1);     // the stage is free
+      const float* Kr = raws + slot * (L::RAW_TILE / 4);
+      const float* Vr = Kr + BK * D;
+      float* Kh = planes + ps * (L::STAGE / 4);
+      float* Kl = Kh + L::KPLANE / 4;
+      float* Vh = Kl + L::KPLANE / 4;
+      float* Vl = Vh + L::VPLANE / 4;
+      // K: chunk i of the raw tile is key i / (D/4), columns 4kc..4kc+3;
+      // keys beyond Nk (the end of the last tile) become zeros
+#pragma unroll 2
+      for (int i = p; i < BK * D / 4; i += 128) {
+        const int key = i / (D / 4), kc = i % (D / 4);
+        float4 x = *reinterpret_cast<const float4*>(Kr + 4 * i);
+        if (key >= valid) x = make_float4(0.f, 0.f, 0.f, 0.f);
+        const int at = (kc * L::KLEAD + key * 16) / 4;
+        *reinterpret_cast<float4*>(Kh + at) = x;
+        *reinterpret_cast<float4*>(Kl + at) = make_float4(
+            wg::tail(x.x), wg::tail(x.y), wg::tail(x.z), wg::tail(x.w));
+      }
+      // V^T slot 4(kc%2)+i of key group kc/2 is key 8(kc/2) + 2i + kc%2:
+      // the order of P's A fragment in the score accumulator's layout
+#pragma unroll 2
+      for (int c = p; c < BK * D / 4; c += 128) {
+        const int kc = c / D, d = c % D, key = 8 * (kc >> 1) + (kc & 1);
+        const float* src = Vr + key * D + d;
+        float4 x = make_float4(src[0], src[2 * D], src[4 * D], src[6 * D]);
+        if (key + 6 >= valid) {  // keys beyond Nk are zeros
+          x.x = key < valid ? x.x : 0.f;
+          x.y = key + 2 < valid ? x.y : 0.f;
+          x.z = key + 4 < valid ? x.z : 0.f;
+          x.w = 0.f;
+        }
+        *reinterpret_cast<float4*>(Vh + 4 * c) = x;
+        *reinterpret_cast<float4*>(Vl + 4 * c) = make_float4(
+            wg::tail(x.x), wg::tail(x.y), wg::tail(x.z), wg::tail(x.w));
+      }
+      if (p < BK) codes[ps * BK + p] = raw_codes[slot * BK + p];
+      // the planes were written by this thread's generic stores and are
+      // read by the consumers' asynchronous products
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      wg::mbar_arrive(full0 + 8 * ps);
+      asm volatile("bar.sync 1, 128;" ::: "memory");  // the raw slot is free
+      if (load_t < t_end) {
+        if (p == 0) load(load_t, slot);
+        if (p < BK) raw_codes[slot * BK + p] = next_code;
+        load_t = next_live(load_t + 1);
+      }
+      if (++slot == wg::RAW) {
+        slot = 0;
+        raw_phase ^= 1;
+      }
+      if (++ps == wg::PLANES) {
+        ps = 0;
+        phase ^= 1;
+      }
     }
-    float sum[2] = {0.f, 0.f};
+  } else {
+    // ---- consumers: 64 query rows a warpgroup, 16 a warp
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+        wg::CONSUMER_REGS));
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = r0 + warp * 16 + g;  // and row0 + 8
+    // Q's TF32 head and tail as A fragments, split once
+    uint32_t qh[NO][4], ql[NO][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int ks = 0; ks < NO; ++ks)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = code[j][e & 1] >= 0 ? fast_exp2(s[j][e] - m_new[e >> 1])
-                                      : 0.f;
-        sum[e >> 1] += s[j][e];
+        const int row = row0 + (e & 1) * 8, col = ks * 8 + t + (e >> 1) * 4;
+        const float x = row < Nq ? qb[(size_t)row * D + col] : 0.f;
+        tf32x3::split_cut(x, qh[ks][e], ql[ks][e]);
       }
+    // s[4j+e] and acc[4n+e]: row g (e < 2) or g + 8, column 8j + 2t + e%2
+    // (8n + ...); the softmax runs in base 2, m is the row max of
+    // score * scale * log2(e)
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[4 * NO], s[4 * NK];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];  // per thread
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+    for (int i = 0; i < 4 * NO; ++i) acc[i] = 0.f;
+    const float scale2 = scale * 1.4426950408889634f;
+    const uint32_t plane0 = wg::smem_addr(planes);
+    int ps = 0;
+    uint32_t phase = 0;
+    // The two warpgroups take turns at S (named barriers 2 and 3, warpgroup
+    // 0 first): one's softmax then runs beside the other's products
+    // instead of both waiting on the tensor cores at once.
+    const int wgc = warp >> 2;
+    if (wgc == 1) asm volatile("bar.arrive 2, 256;" ::: "memory");
+    for (int tile = next_live(t_begin); tile < t_end;
+         tile = next_live(tile + 1)) {
+      wg::mbar_wait(full0 + 8 * ps, phase);
+      asm volatile("bar.sync %0, 256;" ::"r"(2 + wgc) : "memory");
+      const uint32_t kh = plane0 + ps * L::STAGE, kl = kh + L::KPLANE;
+      const uint32_t vh = kl + L::KPLANE, vl = vh + L::VPLANE;
 
-    // acc += P . V, eight keys a step; k-slot t is key 2t, t+4 is key 2t+1,
-    // so the score accumulator is the A fragment as it stands
+      // S = Q.K^T, 3xTF32 a k-step, the small terms first
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t a_hi[4], a_lo[4];
-      tf32x3::split_cut(s[j][0], a_hi[0], a_lo[0]);  // (g,   key 2t)
-      tf32x3::split_cut(s[j][2], a_hi[1], a_lo[1]);  // (g+8, key 2t)
-      tf32x3::split_cut(s[j][1], a_hi[2], a_lo[2]);  // (g,   key 2t+1)
-      tf32x3::split_cut(s[j][3], a_hi[3], a_lo[3]);  // (g+8, key 2t+1)
-      const float* pv = Vt + (j * 8 + 2 * t) * LD + g;
+      for (int i = 0; i < 4 * NK; ++i) s[i] = 0.f;
+      wg::fence_regs(s);  // the zeros are written before the fence
+      wg::wgmma_fence();
 #pragma unroll
-      for (int n0 = 0; n0 < NO; n0 += 4) {
-        uint32_t b_hi[4][2], b_lo[4][2];
+      for (int ks = 0; ks < NO; ++ks) {
+        const uint32_t off = ks * 2 * L::KLEAD;
+        wg::mma(s, ql[ks], wg::desc(kh + off, L::KLEAD, 128));
+        wg::mma(s, qh[ks], wg::desc(kl + off, L::KLEAD, 128));
+        wg::mma(s, qh[ks], wg::desc(kh + off, L::KLEAD, 128));
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait();
+      wg::fence_regs(s);
+      if (wgc == 0 || next_live(tile + 1) < t_end)  // the other's turn
+        asm volatile("bar.arrive %0, 256;" ::"r"(3 - wgc) : "memory");
+
+      // online softmax
+      const int* cs = codes + ps * BK;
+      int code[NK][2];
+      float m_new[2] = {m[0], m[1]};
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          tf32x3::split_cut(pv[(n0 + n) * 8], b_hi[n][0], b_lo[n][0]);
-          tf32x3::split_cut(pv[LD + (n0 + n) * 8], b_hi[n][1], b_lo[n][1]);
+      for (int j = 0; j < NK; ++j) {
+        const int2 c2 = *reinterpret_cast<const int2*>(cs + j * 8 + 2 * t);
+        code[j][0] = c2.x;
+        code[j][1] = c2.y;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = code[j][e & 1];
+          s[4 * j + e] = c > 0 ? s[4 * j + e] * scale2 : NEG;
+          if (c >= 0) m_new[e >> 1] = fmaxf(m_new[e >> 1], s[4 * j + e]);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+        m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+        corr[h] = fast_exp2(m[h] - m_new[h]);
+        m[h] = m_new[h];
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] = code[j][e & 1] >= 0
+                             ? fast_exp2(s[4 * j + e] - m_new[e >> 1])
+                             : 0.f;
+          sum[e >> 1] += s[4 * j + e];
         }
 #pragma unroll
-        for (int n = 0; n < 4; ++n) tf32x3::mma(acc[n0 + n], a_lo, b_hi[n]);
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) tf32x3::mma(acc[n0 + n], a_hi, b_lo[n]);
+      for (int i = 0; i < 4 * NO; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+      // acc += P.V^T planes, 3xTF32 a step of 8 keys; the accumulator of
+      // S is P's A fragment as it stands (k-slot t is key 2t, t+4 is 2t+1)
+      uint32_t ph[NK][4], pl[NK][4];
 #pragma unroll
-        for (int n = 0; n < 4; ++n) tf32x3::mma(acc[n0 + n], a_hi, b_hi[n]);
+      for (int j = 0; j < NK; ++j) {
+        tf32x3::split_cut(s[4 * j + 0], ph[j][0], pl[j][0]);
+        tf32x3::split_cut(s[4 * j + 2], ph[j][1], pl[j][1]);
+        tf32x3::split_cut(s[4 * j + 1], ph[j][2], pl[j][2]);
+        tf32x3::split_cut(s[4 * j + 3], ph[j][3], pl[j][3]);
+      }
+      wg::fence_regs(acc);
+      wg::fence_regs(ph);
+      wg::fence_regs(pl);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const uint32_t off = j * 2 * D * 16;
+        wg::mma(acc, pl[j], wg::desc(vh + off, D * 16, 128));
+        wg::mma(acc, ph[j], wg::desc(vl + off, D * 16, 128));
+        wg::mma(acc, ph[j], wg::desc(vh + off, D * 16, 128));
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait();
+      wg::fence_regs(acc);
+      wg::mbar_arrive(empty0 + 8 * ps);  // this thread is done with the stage
+      if (++ps == wg::PLANES) {
+        ps = 0;
+        phase ^= 1;
       }
     }
 
-    slot = (slot + 1) % STAGES;
-    tile = next_live(tile + 1);
-  }
-  tf32x3::cp_async_wait<0>();
-
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
-  const bool whole = gridDim.y == 1;
-  const size_t base = ((size_t)b * gridDim.y + split) * Nq;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + warp * 16 + h * 8 + g;
-    if (row >= Nq) continue;
-    const float w = whole ? 1.f / fmaxf(l[h], 1e-30f) : 1.f;
-    float* dst = whole ? out + ((size_t)b * Nq + row) * D
-                       : part_acc + (base + row) * D;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(dst + n * 8 + 2 * t) =
-          make_float2(acc[n][h * 2] * w, acc[n][h * 2 + 1] * w);
-    if (!whole && t == 0) {
-      part_ml[(base + row) * 2] = m[h];
-      part_ml[(base + row) * 2 + 1] = l[h];
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
-    if (whole && lse != nullptr && t == 0)
-      lse[(size_t)b * Nq + row] = (m[h] + log2f(fmaxf(l[h], 1e-30f))) * LN2;
+    const bool whole = gridDim.y == 1;
+    const size_t base = ((size_t)b * gridDim.y + split) * Nq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + h * 8;
+      if (row >= Nq) continue;
+      const float w = whole ? 1.f / fmaxf(l[h], 1e-30f) : 1.f;
+      float* dst = whole ? out + ((size_t)b * Nq + row) * D
+                         : part_acc + (base + row) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(dst + n * 8 + 2 * t) =
+            make_float2(acc[4 * n + h * 2] * w, acc[4 * n + h * 2 + 1] * w);
+      if (!whole && t == 0) {
+        part_ml[(base + row) * 2] = m[h];
+        part_ml[(base + row) * 2 + 1] = l[h];
+      }
+      if (whole && lse != nullptr && t == 0)
+        lse[(size_t)b * Nq + row] = (m[h] + log2f(fmaxf(l[h], 1e-30f))) * LN2;
+    }
   }
 }
 
@@ -359,31 +623,40 @@ __global__ void attn_merge_kernel(const float* __restrict__ part_acc,
     lse[br] = (m_all + log2f(fmaxf(den, 1e-30f))) * LN2;
 }
 
+// the 64-key tiles of each split, or the launch error of an empty split
+static cudaError_t tiles_per_split(int Nk, int splits, int* tps) {
+  const int n_tiles = (Nk + BN - 1) / BN;
+  *tps = (n_tiles + splits - 1) / splits;
+  if ((n_tiles + *tps - 1) / *tps != splits)
+    return cudaErrorInvalidValue;  // a split would be empty
+  return cudaSuccess;
+}
+
 template <int D>
 static cudaError_t launch_partial(const float* q, const float* k,
                                   const float* v, const uint8_t* mask,
                                   float* part_acc, float* part_ml, float* out,
                                   float* lse, int B, int Nq, int Nk,
                                   float scale, int splits, cudaStream_t s) {
-  const int n_tiles = (Nk + BN - 1) / BN;
-  const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  if ((n_tiles + tiles_per_split - 1) / tiles_per_split != splits)
-    return cudaErrorInvalidValue;  // a split would be empty
-  const int bytes = smem_bytes<D>(tiles_per_split);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_partial_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  int tps;
+  cudaError_t err = tiles_per_split(Nk, splits, &tps);
   if (err != cudaSuccess) return err;
-  dim3 grid((Nq + BM - 1) / BM, splits, B);
-  attn_partial_kernel<D><<<grid, THREADS, bytes, s>>>(
-      q, k, v, mask, part_acc, part_ml, out, lse, Nq, Nk, scale,
-      tiles_per_split);
+  tps *= BN / wg::Layout<D>::BK;  // in the kernel's tiles; none is empty
+  const int bytes = wg::Layout<D>::bytes(tps);
+  err = cudaFuncSetAttribute(attn_partial_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Nq + wg::ROWS - 1) / wg::ROWS, splits, B);
+  attn_partial_kernel<D><<<grid, wg::NTHREADS, bytes, s>>>(
+      q, k, v, mask, part_acc, part_ml, out, lse, Nq, Nk, scale, tps);
   return cudaGetLastError();
 }
 
 // q (B,Nq,D), k and v (B,Nk,D), out (B,Nq,D) float32; mask (B,Nk) bytes or
 // null; part_acc (B,splits,Nq,D) and part_ml (B,splits,Nq,2) scratch, unused
-// (may be null) when splits is 1; lse (B,Nq) float32 or null.
+// (may be null) when splits is 1; lse (B,Nq) float32 or null. Runs
+// attn_partial_kernel (and attn_merge_kernel when splits > 1).
 extern "C" int attention_forward(const float* q, const float* k,
                                  const float* v, const uint8_t* mask,
                                  float* part_acc, float* part_ml, float* out,
@@ -416,15 +689,16 @@ extern "C" int attention_forward(const float* q, const float* k,
   return (int)cudaGetLastError();
 }
 
-// dynamic shared memory of a block of attn_partial_kernel<D>, or -1
+// dynamic shared memory of a block of the kernel attention_forward
+// launches at width D, `tiles_per_split` 64-key tiles a split, or -1
 extern "C" int attention_smem_bytes(int D, int tiles_per_split) {
   switch (D) {
     case 32:
-      return smem_bytes<32>(tiles_per_split);
+      return wg::Layout<32>::bytes(tiles_per_split);
     case 64:
-      return smem_bytes<64>(tiles_per_split);
+      return wg::Layout<64>::bytes(tiles_per_split);
     case 96:
-      return smem_bytes<96>(tiles_per_split);
+      return wg::Layout<96>::bytes(tiles_per_split * 2);
     default:
       return -1;
   }

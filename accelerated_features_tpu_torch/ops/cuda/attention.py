@@ -10,17 +10,26 @@ grad) the call goes through `_Attention`: the forward also writes the row
 log-sum-exp, and the backward kernel (`attention_backward`, plain version
 `attention_backward_reference`) gives dq, dk and dv;
 `attention_backward.launches` counts its calls. The backward multiplies on
-the tensor cores the same way, in one launch whose grid holds both of its
-roles (blocks that own keys: dK, dV; blocks that own query rows: dQ) after
-a small launch for rowsum(dO * O).
+the tensor cores with `mma.sync`, in one launch whose grid holds both of
+its roles (blocks that own keys: dK, dV; blocks that own query rows: dQ)
+after a small launch for rowsum(dO * O).
 
-The kernel computes both products on the H100's tensor cores at float32
+The forward computes both products on the H100's tensor cores at float32
 grade (3xTF32: every float32 operand split into a TF32 head and tail, three
-`mma.sync` products an output, float32 accumulation), with K and V tiles
-staged by `cp.async` through a three-stage ring of shared memory and the
-online softmax kept in registers. It is bound by operations: the least
-time is 3 * 4*Nq*keys*D / 495 TFLOP/s (dense TF32 peak) for the unmasked
-keys. `ops.precision.tf32x3_matmul` emulates its arithmetic on the CPU.
+products an output, float32 accumulation) and keeps the online softmax in
+registers. It is bound by operations: the least time is
+3 * 4*Nq*keys*D / 495 TFLOP/s (dense TF32 peak) for the unmasked keys.
+Every width runs one warpgroup kernel: a producer warpgroup brings each
+key tile of K and V in by two bulk copies (64 keys; 32 at D = 96, whose
+planes would not fit twice in shared memory at 64) and splits it once into
+TF32 planes (K as stored, V transposed) in a two-stage ring guarded by
+mbarriers; two consumer warpgroups of 64 query rows hold Q's planes and P
+in registers and run the products as `wgmma`, the only instruction that
+reaches the tensor cores' full rate, taking turns so that one's softmax
+runs beside the other's products. A block takes 128 query rows and the
+whole SM, so `key_splits` splits the keys (merged by a second launch) only
+while the grid stays under one wave.
+`ops.precision.tf32x3_matmul` emulates the arithmetic on the CPU.
 """
 
 from __future__ import annotations
@@ -35,8 +44,8 @@ from . import _build
 
 NEG = -1e9
 HEAD_DIMS = (32, 64, 96)  # the widths csrc/attention.cu is built for
-_TILE_Q = 128     # query rows of a block (BM of the kernel)
-_TILE_K = 64      # keys of a tile (BN of the kernel)
+_TILE_Q = 128     # query rows of a block
+_TILE_K = 64      # keys of the tiles the key split counts (BN)
 _MAX_SPLITS = 16  # bounds the scratch of the key split
 
 
@@ -112,6 +121,18 @@ def _check(q, k, v, mask_k):
                              f"{tuple(mask_k.shape)}")
 
 
+def key_splits(b: int, nq: int, nk: int, sms: int) -> int:
+    """How many ways kernel D's launch splits the keys, for b items of nq
+    queries and nk keys on a card of `sms` SMs. A block takes the whole SM
+    (128 query rows, up to ~205 KB of shared memory), so the keys are split
+    only while the grid stays within one block an SM: a larger grid would
+    run in two waves. One split needs no scratch and no merge. The count
+    is such that no split is empty in 64-key tiles."""
+    q_tiles, k_tiles = -(-nq // _TILE_Q), -(-nk // _TILE_K)
+    splits = max(1, min(sms // (b * q_tiles), k_tiles, _MAX_SPLITS))
+    return -(-k_tiles // -(-k_tiles // splits))
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              mask_k: Optional[torch.Tensor], scale: float, want_lse: bool
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -120,14 +141,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, nq, d = q.shape
     nk = k.shape[1]
     dev = q.device
-    # A block takes the whole SM (eight warps, up to 205 KB of shared
-    # memory), so the keys are split only while the grid stays within one
-    # block an SM: a larger grid would run in two waves. One split needs
-    # no scratch and no merge.
-    q_tiles, k_tiles = -(-nq // _TILE_Q), -(-nk // _TILE_K)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(sms // (b * q_tiles), k_tiles, _MAX_SPLITS))
-    splits = -(-k_tiles // -(-k_tiles // splits))  # no empty split
+    splits = key_splits(b, nq, nk, sms)
     null = ctypes.c_void_p(None)
     part_acc = part_ml = None
     if splits > 1:

@@ -18,8 +18,9 @@ the unchanged wrapper, run at the shapes of `chip_smoke.py`'s timing table
 and compared with the plain version:
   C: B = 1, K1 = K2 = 4096 seeded unit descriptors, ragged masks; rows
      that differ;
-  D: B = 1, Nq = Nk = 4096, D = 96, a tenth of the keys masked; max abs
-     error;
+  D: B = 1, Nq = Nk = 4096, D = 96, a tenth of the keys masked, and
+     LightGlue's call, B = 32 (8 pairs x 4 heads), Nq = Nk = 4096, D = 64,
+     a tenth masked; max abs error;
   D's backward: the same shape and mask (its own seeded q, k, v, dO; o
      and the log-sum-exp from kernel D), and LighterGlue training's shape
      (B = 8, 512 x 512, D = 96, ragged masks, one item all masked); max
@@ -34,9 +35,11 @@ and compared with the plain version:
      at its K = 4096 keypoints; max abs error.
 Each is timed twice, in turns, with `utils/profiling.time_ms` (L2
 evicted, device time). For each variant it prints ptxas's register and spill
-report. A variant that exports `read_dbg(long long[16])` (sums of
-`clock64()` per phase, kept by the kernel in a `__device__` array) gets
-those printed for one call of each timed function.
+report (for D: every width's kernels, with their dynamic shared memory
+at one split of 4096 keys). A variant that exports
+`read_dbg(long long[16])` (sums of `clock64()` per phase, kept by the
+kernel in a `__device__` array) gets those printed for one call of each
+timed function.
 """
 
 from __future__ import annotations
@@ -100,10 +103,14 @@ def build(spec: dict, out_dir: Path) -> dict:
             if "Compiling entry" in line and (
                     key[0] in ("stem_fused", "detect_fused", "bicubic",
                                "attention_bwd")
-                    or "panel" in line or "ILi96" in line):
+                    or "panel" in line or "attn" in line):
                 print(key, line.split("'")[1][-40:], "|",
                       lines[i + 2].strip(), "|", lines[i + 3].strip())
         libs[key] = ctypes.CDLL(str(out))
+        if key[0] == "attention":
+            print(key, "dynamic shared memory a block at 64 key tiles:",
+                  {d: libs[key].attention_smem_bytes(d, 64)
+                   for d in attention.HEAD_DIMS})
     return libs
 
 
@@ -128,6 +135,11 @@ def cases() -> dict:
     ref = attention.attention_reference(q, k, v, mk)
     bwd = [_bwd_case(rng, 1, 4096, mk), _bwd_case(
         rng, 8, 512, torch.tensor(_train_mask(rng), device=dev))]
+    lq, lk, lv = (torch.tensor(rng.normal(size=(32, 4096, 64)),
+                               dtype=torch.float32, device=dev)
+                  for _ in range(3))
+    lm = torch.tensor(rng.uniform(size=(32, 4096)) > 0.1, device=dev)
+    lref = attention.attention_reference(lq, lk, lv, lm)
 
     def mnn_err(out):
         return int(((out[0] != i_p) | (out[1] != m_p)).sum())
@@ -172,8 +184,12 @@ def cases() -> dict:
     return {
         "mnn": [("K=4096", lambda: mnn.batch_mnn_match_fused(
             d1, d2, va, vb, -1.0), mnn_err)],
-        "attention": [("4096x4096x96", lambda: attention.flash_attention(
-            q, k, v, mk), lambda o: float((o - ref).abs().max()))],
+        "attention": [
+            ("4096x4096x96", lambda: attention.flash_attention(q, k, v, mk),
+             lambda o: float((o - ref).abs().max())),
+            ("B=32 4096x4096x64",
+             lambda: attention.flash_attention(lq, lk, lv, lm),
+             lambda o: float((o - lref).abs().max()))],
         "attention_bwd": [
             (label, lambda a=args: attention.attention_backward(*a),
              lambda o, w=want: max(float((x - y).abs().max())

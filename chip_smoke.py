@@ -118,9 +118,9 @@ Run from the root of a checkout. In order, it
      `apps/eval_synthetic` on its holdout as MNN, XFeat* and LighterGlue
      (A, B, C and D counted, precisions finite);
  16. times each kernel against its plain version, its bound and, where one
-     exists, a single PyTorch call computing the same function (D's
-     backward also at LighterGlue training's shape), and profiles one call
-     of each matcher.
+     exists, a single PyTorch call computing the same function (D also at
+     LightGlue's call, B = 32 x 4096^2 at width 64; D's backward also at
+     LighterGlue training's shape), and profiles one call of each matcher.
 It prints one `{"kernels": [...]}` line, the card's name and power limit,
 and, last, `{"ok": true, "device": {...}}`. Without a GPU, or outside a
 checkout, it exits non-zero and prints no result.
@@ -3336,7 +3336,9 @@ def main() -> int:
           f"{mnn_lib.mnn_smem_bytes()} bytes; attn_partial_kernel "
           + ", ".join(f"D={d_} {attn_lib.attention_smem_bytes(d_, 16)}"
                       for d_ in (32, 64, 96))
-          + " bytes (16 key tiles a split); stem_kernel "
+          + " bytes (16 64-key tiles a split; ptxas counts 168 registers a "
+          "thread at launch: the producer warpgroup runs on 40, the "
+          "consumers on 232); stem_kernel "
           f"{_build.library('stem_fused').stem_smem_bytes()} bytes")
 
     # ---- 2. each kernel against its plain version --------------------------
@@ -4193,6 +4195,49 @@ def main() -> int:
           f"scaled_dot_product_attention fp32 {lms:.4f} ms (max abs diff to "
           f"kernel {lib_err:.3g}), bound {bms:.4f} ms ({by}, 3xTF32 at "
           f"{PEAK_TF32 / 1e12:.0f} TFLOP/s)")
+
+    # kernel D at LightGlue's call: 8 pairs x 4 heads of 64 folded into
+    # B = 32 items of Nq = Nk = 4096, 10% of the keys masked at random (one
+    # launch: the grid fills the card without a key split).
+    gl = torch.Generator().manual_seed(64)
+    ql, kl, vl = (torch.randn((32, TOP_K, 64), generator=gl).to(dev)
+                  for _ in range(3))
+    ml = (torch.rand((32, TOP_K), generator=gl) > 0.1).to(dev)
+    sl = 64 ** -0.5
+    n0 = flash_attention.launches
+    out_l = flash_attention(ql, kl, vl, ml, sl)
+    check(flash_attention.launches == n0 + 1,
+          "kernel D did not run at B=32 4096x4096x64")
+    ref_l = attention_reference(ql, kl, vl, ml, sl)
+    err_l = (out_l - ref_l).abs().max().item()
+    check(bool(((out_l - ref_l).abs() <= 2e-5 + 1e-4 * ref_l.abs()).all()),
+          "kernel D at B=32 4096x4096x64 off the plain version")
+    ms_l = time_ms(lambda: flash_attention(ql, kl, vl, ml, sl))
+    pms_l = time_ms(lambda: attention_reference(ql, kl, vl, ml, sl), iters=5)
+    ql4, kl4, vl4 = (t_.view(8, 4, TOP_K, 64) for t_ in (ql, kl, vl))
+    ml4 = ml.view(8, 4, 1, TOP_K)
+    lms_l = time_ms(lambda: F.scaled_dot_product_attention(
+        ql4, kl4, vl4, attn_mask=ml4, scale=sl), iters=20)
+    nbytes = 4 * (ql.numel() + kl.numel() + vl.numel() + out_l.numel()) \
+        + ml.numel()
+    keys_l = int(ml.sum(-1).sum())
+    bms_l, by_l = bound(nbytes, 3 * 4.0 * TOP_K * keys_l * 64, PEAK_TF32)
+    rows.append(dict(name="attention_lightglue", route="cuda",
+                     source="accelerated_features_tpu_torch/csrc/"
+                            "attention.cu",
+                     replaces="accelerated_features_tpu/ops/pallas/"
+                              "attention.py:35",
+                     launches=None, max_abs_err=err_l, ms=ms_l,
+                     plain_ms=pms_l, bound_ms=bms_l, bound_by=by_l,
+                     bound_peak="3 x operations at the TF32 tensor-core "
+                                "peak", library_ms=lms_l))
+    print(f"time attention B=32 Nq=Nk={TOP_K} D=64 (LightGlue, {keys_l} "
+          f"keys unmasked in all): kernel {ms_l:.4f} ms (share of the "
+          f"bound {bms_l / ms_l:.3f}, err {err_l:.3g}), plain "
+          f"{pms_l:.4f} ms, "
+          f"scaled_dot_product_attention fp32 {lms_l:.4f} ms, bound "
+          f"{bms_l:.4f} ms ({by_l}, 3xTF32 at {PEAK_TF32 / 1e12:.0f} "
+          f"TFLOP/s)")
 
     # kernel D's backward at the same shape (its own seeded inputs, 10% of
     # the keys masked) and at LighterGlue training's (B=8, 512 x 512, ragged

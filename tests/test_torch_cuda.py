@@ -450,6 +450,107 @@ def test_multi_head_attention_runs_the_kernel(dev, heads, masked):
         lighterglue._attention(q.to(dev), k.to(dev), v.to(dev), None, heads=2)
 
 
+def _attn_inputs(rng, b, nq, nk, d):
+    return (torch.tensor(rng.normal(size=(b, n, d)), dtype=torch.float32,
+                         device="cuda") for n in (nq, nk, nk))
+
+
+def test_attention_kernel_at_lightglue_shape(dev):
+    """LightGlue's call: 8 pairs x 4 heads of 64 folded into 32 items of
+    4096 x 4096 (one launch, no key split). Item 0 is ragged at 4001
+    keys, items 1-3 mask every key from 3500 on (whole tail tiles skipped),
+    the rest a tenth of their keys at random; then the same call with
+    Nk = 4001 keys (a partial last tile). Held to the plain version; reruns
+    are bit-equal."""
+    rng = np.random.default_rng(24)
+    q, k, v = _attn_inputs(rng, 32, 4096, 4096, 64)
+    mask = torch.tensor(rng.uniform(size=(32, 4096)) > 0.1, device=dev)
+    mask[0, 4001:] = False
+    mask[1:4, 3500:] = False
+    ref = attention.attention_reference(q, k, v, mask)
+    launches = attention.flash_attention.launches
+    got = attention.flash_attention(q, k, v, mask)
+    assert attention.flash_attention.launches == launches + 1
+    torch.testing.assert_close(got, ref, **ATTN_TOL)
+    assert torch.equal(got, attention.flash_attention(q, k, v, mask))
+    kr, vr = k[:, :4001].contiguous(), v[:, :4001].contiguous()
+    mr = mask[:, :4001].contiguous()
+    for m in (None, mr):
+        torch.testing.assert_close(attention.flash_attention(q, kr, vr, m),
+                                   attention.attention_reference(q, kr, vr, m),
+                                   **ATTN_TOL)
+
+
+@pytest.mark.parametrize("d", [32, 64, 96])
+@pytest.mark.parametrize("b,nq,nk", [(3, 300, 700), (1, 4096, 4096)])
+def test_attention_kernel_item_with_every_key_masked(dev, d, b, nq, nk):
+    """An item whose keys are all masked gets the mean of V over its Nk
+    keys, at every width and with one split and several (B = 1, 4096 keys:
+    the single pair's split grid); the other items are unharmed."""
+    rng = np.random.default_rng(d + nk)
+    q, k, v = _attn_inputs(rng, b, nq, nk, d)
+    mask = torch.tensor(rng.uniform(size=(b, nk)) > 0.3, device=dev)
+    mask[0] = False
+    got = attention.flash_attention(q, k, v, mask)
+    torch.testing.assert_close(got[0], v[0].mean(0).expand(nq, d),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(got, attention.attention_reference(q, k, v,
+                                                                  mask),
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_attention_lse_feeds_the_backward(dev, d):
+    """The forward kernel's row log-sum-exp against
+    `attention_reference_lse` (one split and a split grid), then the
+    backward kernel fed from it against float64 autograd."""
+    rng = np.random.default_rng(d)
+    scale = d ** -0.5
+    for b, nq, nk in ((6, 512, 700), (1, 2048, 3000)):
+        q, k, v = _attn_inputs(rng, b, nq, nk, d)
+        mask = torch.tensor(rng.uniform(size=(b, nk)) > 0.2, device=dev)
+        mask[0, nk // 2:] = False
+        out, lse = attention._forward(q, k, v, mask, scale, want_lse=True)
+        ref, ref_lse = attention.attention_reference_lse(q, k, v, mask,
+                                                         scale)
+        torch.testing.assert_close(out, ref, **ATTN_TOL)
+        torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=1e-5)
+        g = torch.tensor(rng.normal(size=(b, nq, d)), dtype=torch.float32,
+                         device=dev)
+        grads = attention.attention_backward(q, k, v, mask, out, lse, g,
+                                             scale)
+        q64, k64, v64 = (x.double().requires_grad_() for x in (q, k, v))
+        attention.attention_reference(q64, k64, v64, mask,
+                                      scale).backward(g.double())
+        for name, x, want in zip("qkv", grads, (q64.grad, k64.grad,
+                                                v64.grad)):
+            torch.testing.assert_close(x.double(), want, atol=1e-4,
+                                       rtol=1e-3, msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", [32, 64, 96])
+def test_attention_kernel_names(dev, d):
+    """At every width a call launches `attn_partial_kernel`, and a split
+    grid (one pair of 2048 points) also `attn_merge_kernel`: the names the
+    benchmark's `attention_roofline` reads
+    (`attn_partial_kernel|attn_merge_kernel`)."""
+    rng = np.random.default_rng(d)
+    q, k, v = _attn_inputs(rng, 1, 2048, 2048, d)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert attention.key_splits(1, 2048, 2048, sms) > 1
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        attention.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    kernels = {e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "attn" in e.name}
+    assert any(n.startswith("void attn_partial_kernel<") for n in kernels)
+    assert any("attn_merge_kernel" in n for n in kernels)
+    assert all("attn_partial_kernel" in n or "attn_merge_kernel" in n
+               for n in kernels)
+
+
 def stem_params(seed):
     """Random folded block1 + skip weights from a numpy seed."""
     rng = np.random.default_rng(seed)
