@@ -14,7 +14,9 @@ package's `sfm/ba.py`).
     built once a solve) and summed in one fixed order, where `index_add_`
     on the card adds through float atomics in whatever order they land,
     and a solve's rounding, amplified by the LM loop, would differ from
-    run to run;
+    run to run. On the CPU a sum too large for one thread adds the
+    table's columns in order, since torch would group its terms by the
+    size of its thread pool;
   * every loop runs a fixed number of iterations with masked updates, so a
     solve on the card queues its work without waiting for the device: the
     only read-back before the caller reads the result is the two table
@@ -39,6 +41,9 @@ from ..ops.precision import full_fp32_matmuls
 from .lie import outside_inference_mode, rotate
 
 Reduce = Callable[[torch.Tensor], torch.Tensor]
+# torch's at::internal::GRAIN_SIZE: a CPU reduction over fewer elements
+# runs on one thread, whatever the pool's size
+_CPU_PARALLEL_GRAIN = 32768
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -112,9 +117,21 @@ def segment_tables(p: "BAProblem") -> SegmentTables:
 
 
 def _segment_sum(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Row sums of x over each table row, in the table's order."""
+    """Row sums of x over each table row. One `sum(1)` where its order is
+    fixed: on the card, and on the CPU below torch's parallel grain, where
+    a reduction runs on one thread. Above it the CPU would group the terms
+    by the thread pool's size, and the LM loop grows that rounding into
+    another solution, so the table's columns are added one at a time, in
+    the table's order (the JAX package's `segment_sum` order): the same
+    bits on any pool."""
     xe = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
-    return xe[table].sum(1)
+    g = xe[table]
+    if g.device.type != "cpu" or g.numel() < _CPU_PARALLEL_GRAIN:
+        return g.sum(1)
+    acc = torch.zeros_like(g[:, 0])
+    for col in g.unbind(1):
+        acc += col
+    return acc
 
 
 def _residuals(p: BAProblem) -> torch.Tensor:

@@ -55,9 +55,8 @@ from accelerated_features_tpu_torch.utils.imageio import (read_frames,
                                                           write_png)
 from accelerated_features_tpu_torch.utils.text import put_text
 
-ROOT = Path(__file__).resolve().parents[1]
-HOLDOUT = ROOT / "artifacts" / "rendered_pose_holdout"
-WEIGHTS = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
+from torch_support import CKPT, HOLDOUT, ROOT
+
 FX, FW, FH = 500.0, 640, 480
 K_APP = np.array([[FX, 0, FW / 2], [0, FX, FH / 2], [0, 0, 1]])
 
@@ -89,7 +88,7 @@ def synth_dir(tmp_path_factory):
 
 def test_eval_synthetic_matches_jax(synth_dir, tmp_path, monkeypatch):
     import apps.eval_synthetic as jes
-    args = ["--images", str(synth_dir), "--ckpt", WEIGHTS, "--pairs", "4",
+    args = ["--images", str(synth_dir), "--ckpt", CKPT, "--pairs", "4",
             "--top_k", "512"]
     monkeypatch.setattr(sys, "argv", ["eval_synthetic", *args, "--platform",
                                       "cpu", "--json",

@@ -36,7 +36,6 @@ import json
 import re
 import subprocess
 import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -50,22 +49,11 @@ from accelerated_features_tpu_torch.models.params import params_from_jax
 from accelerated_features_tpu_torch.sfm.ba import ba_step
 from accelerated_features_tpu_torch.utils.profiling import count_flops
 
-ROOT = Path(__file__).resolve().parents[1]
+from torch_support import ROOT, close
+
 TINY = ["--device", "cpu", "--batch", "2", "--top_k", "64", "--iters", "2",
         "--res", "80x64", "--accurate_res", "96x64", "--mnn_k", "64",
         "--lg_k", "32", "--ba", "6,40,3"]
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The programs make thousands of tiny calls here; with a pool of
-    torch threads each call waits at the pool's barriers, which on a
-    loaded machine made `bench.main` at TINY take 216 s against 4 s with
-    one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_bench():
@@ -106,13 +94,6 @@ def test_synth_ba_equals_jax():
                                rtol=0, atol=1e-3)
 
 
-def _close(got, ref, rel):
-    """|got - ref| <= rel * max|ref| (test_torch_sfm.py's gate)."""
-    ref = np.asarray(ref)
-    err = np.abs(got.numpy() - ref).max() / max(np.abs(ref).max(), 1e-30)
-    assert err <= rel, (err, rel)
-
-
 def test_ba_step_equals_jax():
     """4 of the 40 points are seen by one camera only (at the bench's
     sizes none is), so only the damping fixes their depth and a float32
@@ -124,7 +105,7 @@ def test_ba_step_equals_jax():
     want32, wcost = step(jsuite._synth_ba(6, 40, 3))
     got32, gcost = ba_step(bench_suite._synth_ba(6, 40, 3), 1e-3,
                            cg_iters=30)
-    _close(gcost, wcost, 1e-6)
+    close(gcost, wcost, 1e-6)
     floats = ("cams", "points", "K", "obs_uv")
     with jax.enable_x64(True):
         q = jsuite._synth_ba(6, 40, 3)
@@ -134,8 +115,8 @@ def test_ba_step_equals_jax():
     q = bench_suite._synth_ba(6, 40, 3)
     got, _ = ba_step(q._replace(**{k: getattr(q, k).double()
                                    for k in floats}), 1e-3, cg_iters=30)
-    _close(got.cams, want.cams, 1e-3)
-    _close(got.points, want.points, 1e-3)
+    close(got.cams, want.cams, 1e-3)
+    close(got.points, want.points, 1e-3)
 
 
 # ------------------------------------------------------- headline program

@@ -6,8 +6,6 @@ file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -28,6 +26,7 @@ from accelerated_features_tpu_torch.ops.extraction import extract_dense
 from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
 
 from select_cases import CASES as SELECT_CASES
+from torch_support import CKPT, LG_CKPT
 
 pytestmark = pytest.mark.cuda
 
@@ -151,9 +150,7 @@ def test_dense_topk_routes_to_the_kernel(dev):
     assert torch.equal(idx, _padded_top_k(rel, 3276)[1])
     assert torch.equal(f, torch.gather(feats, 1,
                                        idx[..., None].expand(-1, -1, 64)))
-    ckpt = Path(__file__).resolve().parents[1] / "artifacts" \
-        / "run_md_ckpt13250.npz"
-    params = to_dev(load_params(str(ckpt)), dev)
+    params = to_dev(load_params(CKPT), dev)
     images = torch.tensor(rng.uniform(size=(1, 96, 128, 3)),
                           dtype=torch.float32, device=dev)
     n = detect_fused.topk_exact.launches
@@ -614,9 +611,7 @@ def test_stem_kernel_matches_plain_bf16(dev, b, h, w):
 
 
 def test_backbone_routes_to_the_stem_kernel(dev):
-    ckpt = Path(__file__).resolve().parents[1] / "artifacts" \
-        / "run_md_ckpt13250.npz"
-    params = to_dev(load_params(str(ckpt)), dev)
+    params = to_dev(load_params(CKPT), dev)
     x = torch.tensor(np.random.default_rng(0).uniform(size=(2, 96, 128, 3)),
                      dtype=torch.float32, device=dev)
     n = stem_fused.stem_fused.launches
@@ -667,9 +662,7 @@ def test_backbone_routes_to_the_fusion_kernel(dev):
     that autograd records and bfloat16 take the plain expression; sides
     not divisible by 32 (80x112: block3 10x14, block4 5x7, block5 3x4)
     are refused."""
-    ckpt = Path(__file__).resolve().parents[1] / "artifacts" \
-        / "run_md_ckpt13250.npz"
-    params = to_dev(load_params(str(ckpt)), dev)
+    params = to_dev(load_params(CKPT), dev)
     x = torch.tensor(np.random.default_rng(0).uniform(size=(2, 96, 128, 3)),
                      dtype=torch.float32, device=dev)
     launches = feature_fusion.fuse_pyramid
@@ -682,7 +675,7 @@ def test_backbone_routes_to_the_fusion_kernel(dev):
     with pytest.raises(ValueError), torch.no_grad():
         xfeat_forward(params, x[:, :80, :112].contiguous())
     xfeat_forward(params, x, compute_dtype=torch.bfloat16)
-    unfolded = to_dev(load_params(str(ckpt), fold_bn=False), dev)
+    unfolded = to_dev(load_params(CKPT, fold_bn=False), dev)
     xfeat_forward(unfolded, x, train=True)
     graded = {**params, "block3": [{**p, "w": p["w"].clone()
                                     .requires_grad_(True)}
@@ -782,13 +775,12 @@ def test_matmuls_ignore_the_tf32_flag(dev):
     caller's flag reads True again after each call."""
     from accelerated_features_tpu_torch import XFeat
     from accelerated_features_tpu_torch.models.lighterglue import LighterGlue
-    ckpt = Path(__file__).resolve().parents[1] / "artifacts"
     rng = np.random.default_rng(7)
     d = rng.normal(size=(2, 2, 3000, 64))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     d1, d2 = (torch.tensor(x, dtype=torch.float32, device=dev) for x in d)
-    xf = XFeat(str(ckpt / "run_md_ckpt13250.npz"), top_k=2048, device=dev)
-    lg = LighterGlue(str(ckpt / "lighterglue_ft_ckpt7791.npz"), dev)
+    xf = XFeat(CKPT, top_k=2048, device=dev)
+    lg = LighterGlue(LG_CKPT, dev)
     img = (rng.uniform(size=(256, 320)) * 255).astype(np.uint8)
     img = np.kron(img[::4, ::4], np.ones((4, 4), np.uint8))
     f0 = {**xf.detectAndCompute(img)[0], "image_size": (320, 256)}
@@ -954,9 +946,7 @@ def test_server_on_the_card_answers_like_direct_calls(dev):
     from accelerated_features_tpu_torch.ops.cuda.detect_fused import \
         topk_keypoints_fused
 
-    ckpt = str(Path(__file__).resolve().parents[1] / "artifacts"
-               / "run_md_ckpt13250.npz")
-    httpd = serve(port=0, weights=ckpt, top_k=512, max_batch=2,
+    httpd = serve(port=0, weights=CKPT, top_k=512, max_batch=2,
                   max_wait_ms=2000.0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()

@@ -35,10 +35,9 @@ import h5py
 import numpy as np
 import pytest
 
-ROOT = Path(__file__).resolve().parents[1]
-HOLDOUT = ROOT / "artifacts" / "rendered_pose_holdout"
-FIXTURE = ROOT / "tests" / "fixtures" / "megadepth_mini"
-FULL_MAP = ROOT / "tests" / "fixtures" / "megadepth_depth_608x800"
+from torch_support import (HOLDOUT, HOLDOUT_SCENES, MEGADEPTH_DEPTH,
+                           MEGADEPTH_MINI, ROOT)
+
 BLOCKED = ("cv2", "h5py", "jax")
 
 
@@ -85,7 +84,7 @@ def trees(tmp_path_factory):
              f"{app}.main({argv!r})"
              for app, argv in _args(tex, port_out).items()]
     fixture_args = ["--out", str(base / "fixture"), "--textures",
-                    str(HOLDOUT / "MegaDepth_v1"), "--full_size_out",
+                    str(HOLDOUT_SCENES), "--full_size_out",
                     str(base / "full")]
     calls.append("from accelerated_features_tpu_torch.tools import "
                  f"make_megadepth_fixture as m; m.main({fixture_args!r})")
@@ -176,5 +175,5 @@ def test_eval_variants_of_committed_manifest_equal_jax(tmp_path, max_dim):
 
 
 def test_fixture_tool_reproduces_the_committed_fixture(trees):
-    _same_tree(FIXTURE, trees["fixture"])
-    _same_tree(FULL_MAP, trees["full"])
+    _same_tree(MEGADEPTH_MINI, trees["fixture"])
+    _same_tree(MEGADEPTH_DEPTH, trees["full"])

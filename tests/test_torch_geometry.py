@@ -3,8 +3,6 @@ utilities, the pieces of the batched RANSAC, the whole estimator from
 shared samples, the pose metrics and the benchmark harness on the
 committed holdout. Inputs come from numpy seeds."""
 
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +19,8 @@ from accelerated_features_tpu_torch.geometry import (get_pose_estimator,
                                                      ransac as tr)
 from accelerated_features_tpu_torch.sfm import lie
 
-ROOT = Path(__file__).resolve().parents[1]
-CKPT = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
-HOLDOUT = ROOT / "artifacts" / "rendered_pose_holdout"
+from torch_support import CKPT, HOLDOUT
+
 K = np.array([[709.95, 0, 400], [0, 709.95, 304], [0, 0, 1]], np.float32)
 
 

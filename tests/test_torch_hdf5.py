@@ -12,8 +12,6 @@ float64, square and not, with h5py's own chunk shape (`guess_chunk`),
 compression, level and shuffle; a deep chunk tree answers h5py's
 slices."""
 
-from pathlib import Path
-
 import h5py
 import numpy as np
 import pytest
@@ -22,8 +20,9 @@ from accelerated_features_tpu_torch.utils.hdf5 import (guess_chunk,
                                                        read_dataset,
                                                        write_dataset)
 
-FIXTURE = Path(__file__).resolve().parent / "fixtures" / "megadepth_mini"
-FULL_SIZE = FIXTURE.parent / "megadepth_depth_608x800" / "depth.h5"
+from torch_support import MEGADEPTH_DEPTH, MEGADEPTH_MINI
+
+FULL_SIZE = MEGADEPTH_DEPTH / "depth.h5"
 
 
 def _write(path, data, name="depth", **kw):
@@ -117,8 +116,8 @@ def test_refuses_what_it_does_not_read(tmp_path, case):
         read_dataset(path)
 
 
-@pytest.mark.parametrize("h5", sorted(FIXTURE.rglob("*.h5")),
-                         ids=lambda p: str(p.relative_to(FIXTURE)))
+@pytest.mark.parametrize("h5", sorted(MEGADEPTH_MINI.rglob("*.h5")),
+                         ids=lambda p: str(p.relative_to(MEGADEPTH_MINI)))
 def test_fixture_depths_equal_h5py_and_their_twins(h5):
     with h5py.File(h5, "r") as f:
         ref = f["depth"][()]

@@ -22,9 +22,9 @@ from accelerated_features_tpu_torch.utils.imageio import (
     imread, imread_gray, imread_if_image, load_textures, read_png, resize,
     warp_perspective, write_png)
 
-ROOT = Path(__file__).resolve().parents[1]
-HOLDOUT = ROOT / "artifacts" / "rendered_pose_holdout" / "MegaDepth_v1"
-HOLDOUT_PNGS = sorted(HOLDOUT.rglob("*.png"))
+from torch_support import HOLDOUT, HOLDOUT_SCENES
+
+HOLDOUT_PNGS = sorted(HOLDOUT_SCENES.rglob("*.png"))
 
 
 def _paeth(a, b, c):
@@ -69,7 +69,7 @@ def _write_png(path, pixels, color, filters, depth=8, interlace=0):
 
 
 @pytest.mark.parametrize("path", HOLDOUT_PNGS,
-                         ids=[str(p.relative_to(HOLDOUT))
+                         ids=[str(p.relative_to(HOLDOUT_SCENES))
                               for p in HOLDOUT_PNGS])
 def test_read_png_equals_cv2_on_the_holdout(path):
     got = read_png(path)
@@ -143,7 +143,7 @@ def test_load_textures_gives_the_jax_crops(tmp_path):
 
 
 def test_load_textures_searches_the_holdout_recursively():
-    got = load_textures(HOLDOUT, 16, np.random.default_rng(3))
+    got = load_textures(HOLDOUT_SCENES, 16, np.random.default_rng(3))
     assert len(got) == 16
     assert all(t.shape == (256, 256, 3) and t.dtype == np.uint8 for t in got)
 
@@ -162,8 +162,8 @@ def test_png_eval_runs_without_cv2(monkeypatch, tmp_path):
     with pytest.raises(ImportError):
         imread(tmp_path / "x.bmp")
     summary = md.run_benchmark(
-        md.make_matcher("xfeat", 256, device="cpu"), str(HOLDOUT.parent),
-        str(HOLDOUT.parent / "rendered_pose_pairs.json"), limit=1,
+        md.make_matcher("xfeat", 256, device="cpu"), str(HOLDOUT),
+        str(HOLDOUT / "rendered_pose_pairs.json"), limit=1,
         progress=False)
     assert summary["n_pairs"] == 1 and summary["mean_matches"] > 20
 

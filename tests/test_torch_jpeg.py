@@ -17,7 +17,6 @@ magnitude (cv2's float path weighs in more than float32 precision, the
 port in float64)."""
 
 import struct
-from pathlib import Path
 
 import cv2
 import numpy as np
@@ -30,11 +29,10 @@ from accelerated_features_tpu_torch.utils.imageio import (decode_jpeg,
                                                           read_jpeg,
                                                           read_png, resize)
 
-ROOT = Path(__file__).resolve().parents[1]
-FIXTURE = ROOT / "tests" / "fixtures" / "scannet1500_mini"
-FRAMES = sorted(FIXTURE.rglob("*.jpg"))
-HOLDOUT_PNG = sorted((ROOT / "artifacts" / "rendered_pose_holdout")
-                     .rglob("*.png"))[3]
+from torch_support import HOLDOUT, SCANNET_MINI
+
+FRAMES = sorted(SCANNET_MINI.rglob("*.jpg"))
+HOLDOUT_PNG = sorted(HOLDOUT.rglob("*.png"))[3]
 
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
             "422": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
@@ -72,7 +70,7 @@ def test_fixture_frames_are_640x480_baseline_420():
 
 
 @pytest.mark.parametrize("path", FRAMES,
-                         ids=lambda p: str(p.relative_to(FIXTURE)))
+                         ids=lambda p: str(p.relative_to(SCANNET_MINI)))
 def test_decode_equals_cv2_on_the_fixture(path):
     _same_as_cv2(path.read_bytes())
     assert np.array_equal(read_jpeg(path), cv2.imread(str(path)))

@@ -7,7 +7,6 @@ loader) go through the JAX function and the port's counterpart. The Pallas
 attention kernel runs in interpret mode. Tolerances are stated per test."""
 
 import functools
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,13 +26,9 @@ from accelerated_features_tpu_torch.models.params import (
     load_lighterglue_params, load_npz_tree)
 from accelerated_features_tpu_torch.ops.cuda import attention
 
-ROOT = Path(__file__).resolve().parents[1]
-LG_CKPT = str(ROOT / "artifacts" / "lighterglue_ft_ckpt7791.npz")
+from torch_support import CKPT, LG_CKPT, t
+
 ATTN_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_pallas_attention.py's
-
-
-def t(a):
-    return torch.tensor(np.asarray(a))
 
 
 def texture(seed, h, w):
@@ -285,9 +280,8 @@ def test_match_lighterglue_api_matches_jax():
     loaded weights it raises, random weights warn."""
     im = texture(2, 192, 256)
     im2 = np.roll(im, (8, 16), axis=(0, 1))
-    ckpt = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
-    jx = JaxXFeat(weights=ckpt, top_k=256)
-    tx = XFeat(weights=ckpt, top_k=256, device="cpu")
+    jx = JaxXFeat(weights=CKPT, top_k=256)
+    tx = XFeat(weights=CKPT, top_k=256, device="cpu")
     size = {"image_size": (im.shape[1], im.shape[0])}
     j0, j1 = ({**jx.detectAndCompute(i)[0], **size} for i in (im, im2))
     t0, t1 = ({**tx.detectAndCompute(i)[0], **size} for i in (im, im2))

@@ -27,14 +27,6 @@ COUNTS = ((56, 48), (40, 56), (50, 44))     # valid points of each pair
 SIZE = (640.0, 480.0)
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def state_dict():
     return seeded.lighterglue_state_dict(CONF, 5, "cpu")

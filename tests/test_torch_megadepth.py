@@ -17,7 +17,6 @@ one JPEG with gzip-chunked depth, one color PNG with contiguous depth).
 import shutil
 import sys
 import threading
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -31,8 +30,10 @@ from accelerated_features_tpu_torch.train import megadepth as tmd
 from accelerated_features_tpu_torch.train import render as trender
 from accelerated_features_tpu_torch.train import run as trun
 
-FIXTURE = Path(__file__).resolve().parent / "fixtures" / "megadepth_mini"
-SCENES = sorted((FIXTURE / "train_data").rglob("*.npz"))
+from torch_support import MEGADEPTH_MINI, ROOT
+
+VIEWS = MEGADEPTH_MINI / "MegaDepth_v1"
+SCENES = sorted((MEGADEPTH_MINI / "train_data").rglob("*.npz"))
 RES = (128, 96)   # (W, H) of the training images here
 
 
@@ -44,18 +45,19 @@ def _same(a, b):
 
 def test_fixture_layout():
     assert [p.name for p in SCENES] == ["scene_0000.npz", "scene_0001.npz"]
-    imgs = sorted(p.name for p in (FIXTURE / "MegaDepth_v1").rglob("view_*")
+    imgs = sorted(p.name for p in VIEWS.rglob("view_*")
                   if p.suffix in (".jpg", ".png"))
     assert imgs == ["view_0.jpg", "view_0.png", "view_1.jpg", "view_1.png",
                     "view_2.jpg", "view_2.png"]
-    size = sum(p.stat().st_size for p in FIXTURE.rglob("*") if p.is_file())
+    size = sum(p.stat().st_size for p in MEGADEPTH_MINI.rglob("*")
+               if p.is_file())
     assert size < 4_000_000
 
 
 @pytest.mark.parametrize("npz", SCENES, ids=lambda p: p.stem)
 def test_dataset_items_equal_jax(npz):
-    jd = jmd.MegaDepthDataset(str(FIXTURE / "MegaDepth_v1"), str(npz), RES)
-    td = tmd.MegaDepthDataset(str(FIXTURE / "MegaDepth_v1"), str(npz), RES)
+    jd = jmd.MegaDepthDataset(str(VIEWS), str(npz), RES)
+    td = tmd.MegaDepthDataset(str(VIEWS), str(npz), RES)
     assert jd.pairs == td.pairs and len(td) == 3
     items = []
     for i in range(len(td)):
@@ -67,8 +69,8 @@ def test_dataset_items_equal_jax(npz):
 
 
 def test_loader_batches_equal_jax():
-    jl = jmd.MegaDepthLoader(str(FIXTURE), 4, RES, seed=3)
-    tl = tmd.MegaDepthLoader(str(FIXTURE), 4, RES, seed=3)
+    jl = jmd.MegaDepthLoader(str(MEGADEPTH_MINI), 4, RES, seed=3)
+    tl = tmd.MegaDepthLoader(str(MEGADEPTH_MINI), 4, RES, seed=3)
     n = 0
     for a, b in zip(jl, tl):
         _same(a, b)
@@ -77,20 +79,20 @@ def test_loader_batches_equal_jax():
 
 
 def test_load_all_views_equals_jax():
-    a = jmd.load_all_views(str(FIXTURE), RES)
-    b = tmd.load_all_views(str(FIXTURE), RES)
+    a = jmd.load_all_views(str(MEGADEPTH_MINI), RES)
+    b = tmd.load_all_views(str(MEGADEPTH_MINI), RES)
     _same(a, b)
     assert b["images"].shape == (6, 96, 128, 1)
     assert b["depths"].shape == (6, 240, 320)
 
 
 def test_depth_and_image_reads(monkeypatch):
-    h5 = next((FIXTURE / "MegaDepth_v1").rglob("view_1.h5"))
+    h5 = next(VIEWS.rglob("view_1.h5"))
     ref = np.load(h5.with_suffix(".npy"))
     assert np.array_equal(tmd.load_depth_h5(str(h5)), ref)
     assert tmd.load_depth_h5(str(h5) + ".missing") is None
     assert jmd.load_depth_h5(str(h5) + ".missing") is None
-    png = next((FIXTURE / "MegaDepth_v1").rglob("view_2.png"))
+    png = next(VIEWS.rglob("view_2.png"))
     assert np.array_equal(tmd.imread_gray(str(png)),
                           jmd.imread_gray(str(png)))
     # s3:// paths go through read_bytes; without boto3 it raises, as JAX's
@@ -120,7 +122,7 @@ def test_camera_pair_and_overlap_equal_jax():
             assert np.array_equal(a, b)
     npz = np.load(SCENES[0], allow_pickle=True)
     depths = [np.load(p) for p in sorted(
-        (FIXTURE / "MegaDepth_v1").rglob("scene_0000/depths/*.npy"))]
+        VIEWS.rglob("scene_0000/depths/*.npy"))]
     K, P = npz["intrinsics"], npz["poses"]
     for (i, j), overlap, _ in npz["pair_infos"]:
         T = P[j] @ np.linalg.inv(P[i])
@@ -157,8 +159,8 @@ def _close_batches(j, t):
 
 
 def test_resident_batcher_equals_jax():
-    jb = jrun.ResidentMegaDepthBatcher(str(FIXTURE), 3, RES, 256)
-    tb = trun.ResidentMegaDepthBatcher(str(FIXTURE), 3, RES, 256,
+    jb = jrun.ResidentMegaDepthBatcher(str(MEGADEPTH_MINI), 3, RES, 256)
+    tb = trun.ResidentMegaDepthBatcher(str(MEGADEPTH_MINI), 3, RES, 256,
                                        torch.device("cpu"))
     assert tb.views["depths"].dtype == torch.bfloat16
     key = jax.random.key(2)
@@ -172,11 +174,12 @@ def test_resident_batcher_equals_jax():
 
 
 def test_streamed_batcher_equals_jax():
-    jb = jrun.MegaDepthBatcher(jmd.MegaDepthLoader(str(FIXTURE), 3, RES),
-                               256)
-    tl = tmd.MegaDepthLoader(str(FIXTURE), 3, RES).infinite()
-    tb = trun.MegaDepthBatcher(tmd.MegaDepthLoader(str(FIXTURE), 3, RES),
-                               256, torch.device("cpu"))
+    jb = jrun.MegaDepthBatcher(
+        jmd.MegaDepthLoader(str(MEGADEPTH_MINI), 3, RES), 256)
+    tl = tmd.MegaDepthLoader(str(MEGADEPTH_MINI), 3, RES).infinite()
+    tb = trun.MegaDepthBatcher(
+        tmd.MegaDepthLoader(str(MEGADEPTH_MINI), 3, RES), 256,
+        torch.device("cpu"))
     key = jax.random.key(1)
     for _ in range(2):
         jbatch = jb.next()
@@ -189,7 +192,7 @@ def test_streamed_batcher_equals_jax():
 
 def _args(ck, extra=()):
     return ["--ckpt_save_path", str(ck), "--megadepth_root_path",
-            str(FIXTURE), "--training_type", "xfeat_megadepth",
+            str(MEGADEPTH_MINI), "--training_type", "xfeat_megadepth",
             "--batch_size", "2", "--n_steps", "2", "--training_res",
             f"{RES[0]},{RES[1]}", "--max_corrs", "64", "--device", "cpu",
             "--save_ckpt_every", "2", *extra]
@@ -212,11 +215,11 @@ def test_run_main_trains_on_the_fixture(tmp_path, monkeypatch, resident):
 
 def test_prefetch_error_surfaces_in_main(tmp_path):
     root = tmp_path / "md"
-    shutil.copytree(FIXTURE, root)
+    shutil.copytree(MEGADEPTH_MINI, root)
     for h5 in root.rglob("*.h5"):
         h5.write_bytes(b"\0" * 64)        # unreadable depth everywhere
     args = _args(tmp_path / "ck")
-    args[args.index(str(FIXTURE))] = str(root)
+    args[args.index(str(MEGADEPTH_MINI))] = str(root)
     with pytest.raises(ValueError, match="HDF5"):
         trun.main(args)
     assert not [t for t in threading.enumerate()
@@ -254,4 +257,4 @@ def test_import_without_h5py_or_cv2():
             "import accelerated_features_tpu_torch.train.megadepth as m; "
             "import accelerated_features_tpu_torch.train.run")
     subprocess.run([sys.executable, "-c", code], check=True,
-                   cwd=Path(__file__).resolve().parents[1], timeout=120)
+                   cwd=ROOT, timeout=120)

@@ -5,8 +5,6 @@ in interpret mode) and the port's counterpart; tolerances are stated per
 test. The plain versions here are what the CUDA kernels are held against
 on the card."""
 
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,12 +36,8 @@ from accelerated_features_tpu_torch.ops.cuda import \
     detect_fused as cuda_detect
 from accelerated_features_tpu_torch.ops.cuda import mnn as cuda_mnn
 
-CKPT = str(Path(__file__).resolve().parents[1] / "artifacts"
-           / "run_md_ckpt13250.npz")
+from torch_support import CKPT, t
 
-
-def t(a):
-    return torch.tensor(np.asarray(a))
 
 
 @pytest.mark.parametrize("hw", [(64, 96), (96, 128)])

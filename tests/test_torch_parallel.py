@@ -39,6 +39,8 @@ import torch
 
 from accelerated_features_tpu_torch.parallel.dryrun import run_ranks
 
+from torch_support import LG_CKPT, leaves
+
 B, H, W, M = 2, 64, 64, 32
 LR = 3e-4
 # biases right before a BatchNorm: zero gradient in exact arithmetic
@@ -130,15 +132,11 @@ def _mnn_inputs():
 
 
 def _lg_weights():
-    from pathlib import Path
-
     from accelerated_features_tpu_torch.models.params import \
         load_lighterglue_params
     from accelerated_features_tpu_torch.train import optim
-    path = Path(__file__).resolve().parents[1] / "artifacts" / \
-        "lighterglue_ft_ckpt7791.npz"
     return optim.tree_map(lambda t: t.numpy(),
-                          load_lighterglue_params(str(path)))
+                          load_lighterglue_params(LG_CKPT))
 
 
 # ---- what each rank runs ---------------------------------------------------
@@ -348,21 +346,11 @@ def _port_step(jparams, batch, mode, clip=1.0, keep=None):
         _tree_np(grads)
 
 
-def _leaves(tree, prefix=""):
-    if isinstance(tree, dict):
-        return {k2: v2 for k, v in tree.items()
-                for k2, v2 in _leaves(v, f"{prefix}{k}/").items()}
-    if isinstance(tree, (list, tuple)):
-        return {k2: v2 for i, v in enumerate(tree)
-                for k2, v2 in _leaves(v, f"{prefix}{i}/").items()}
-    return {prefix[:-1]: np.asarray(tree)}
-
-
 def _params_close(got, ref, grads, rel_stats=1e-5, atol_stats=1e-6):
     """Parameters within 1e-6 + 2 lr where the gradient is near zero;
     running statistics within atol_stats + rel_stats relative."""
-    g = _leaves(grads)
-    got, ref = _leaves(got), _leaves(ref)
+    g = leaves(grads)
+    got, ref = leaves(got), leaves(ref)
     assert got.keys() == ref.keys()
     for k, r in ref.items():
         if k.endswith("/mean") or k.endswith("/var"):
@@ -382,8 +370,8 @@ def _check_step(res, jparams, batch, mode, clip=1.0, keep=None):
         assert res["metrics"][k] == pytest.approx(v, rel=1e-6, abs=1e-9), k
     _params_close(res["state"]["params"], ref["params"], grads)
     for name, rel in (("mu", 1e-5), ("nu", 2e-5)):
-        a = _leaves(getattr(res["state"]["opt_state"][1], name))
-        b = _leaves(getattr(ref["opt_state"][1], name))
+        a = leaves(getattr(res["state"]["opt_state"][1], name))
+        b = leaves(getattr(ref["opt_state"][1], name))
         top = max(np.abs(v).max() for v in b.values())
         for k in b:
             if k in ZERO_GRAD:   # moments of rounding noise
@@ -437,8 +425,8 @@ def test_sharded_step_matches_single_device(inputs, two, four, case, mode,
     res = (two if case in two[0] else four)
     batch = inputs["distill" if mode == "distill" else "kp"]
     for r in res[1:]:   # every rank holds the same whole state
-        for a, b in zip(_leaves(r[case]["state"]).values(),
-                        _leaves(res[0][case]["state"]).values()):
+        for a, b in zip(leaves(r[case]["state"]).values(),
+                        leaves(res[0][case]["state"]).values()):
             assert np.array_equal(a, b)
     _check_step(res[0][case], inputs["jparams"], batch, mode, clip)
     shapes = res[0][case]["local_shapes"]

@@ -2,8 +2,6 @@
 and the same random init must give equal leaves (torch layouts mapped
 back to JAX's)."""
 
-from pathlib import Path
-
 import jax
 import numpy as np
 import pytest
@@ -18,8 +16,8 @@ from accelerated_features_tpu_torch.models.params import (
     count_params as port_count_params, fold_batchnorm as port_fold_batchnorm,
     init_xfeat_params as port_init_xfeat_params, load_npz_tree, load_params)
 
-CKPT = str(Path(__file__).resolve().parents[1] / "artifacts"
-           / "run_md_ckpt13250.npz")
+from torch_support import CKPT
+
 
 
 def _pairs(jax_tree, port_tree, path=""):

@@ -2,7 +2,6 @@
 plus the port's guards: no JAX import, no silent CPU fallback."""
 
 import ast
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -11,8 +10,8 @@ import torch
 from accelerated_features_tpu.api import XFeat as JaxXFeat
 from accelerated_features_tpu_torch import XFeat
 
-ROOT = Path(__file__).resolve().parents[1]
-CKPT = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
+from torch_support import CKPT, HOLDOUT_SCENES, ROOT
+
 
 
 def texture(seed, h, w):
@@ -73,8 +72,7 @@ def test_match_xfeat_on_rendered_holdout_matches_jax(models):
     in the score-sorted output; the sets of keypoints and of matched pairs
     are identical."""
     cv2 = pytest.importorskip("cv2")
-    scene = (ROOT / "artifacts" / "rendered_pose_holdout" / "MegaDepth_v1"
-             / "rendered" / "holdout_0012" / "imgs")
+    scene = HOLDOUT_SCENES / "rendered" / "holdout_0012" / "imgs"
     im0 = cv2.imread(str(scene / "view_0.png"))
     im1 = cv2.imread(str(scene / "view_1.png"))
     assert im0 is not None and im0.shape == (608, 800, 3)

@@ -21,14 +21,6 @@ from accelerated_features_tpu_torch.tools import (measure_select,
                                                   measure_stem, probe_int8)
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _lines(capsys):
     return [json.loads(x) for x in capsys.readouterr().out.splitlines()
             if x.startswith("{")]

@@ -3,7 +3,6 @@ on the card in `chip_smoke.py`), and `utils/imageio.decode_png` against
 `cv2.imdecode`."""
 
 import time
-from pathlib import Path
 
 import cv2
 import numpy as np
@@ -13,8 +12,8 @@ import torch
 from accelerated_features_tpu_torch.utils import profiling
 from accelerated_features_tpu_torch.utils.imageio import decode_png
 
-ROOT = Path(__file__).resolve().parents[1]
-HOLDOUT = ROOT / "artifacts" / "rendered_pose_holdout"
+from torch_support import HOLDOUT_SCENES
+
 
 
 def test_time_fn_host_clock():
@@ -116,10 +115,10 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     assert len(files) == 1 and b"traceEvents" in files[0].read_bytes()
 
 
-@pytest.mark.parametrize("name", sorted(p.name for p in (
-    HOLDOUT / "MegaDepth_v1").rglob("*.png"))[:4])
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in HOLDOUT_SCENES.rglob("*.png"))[:4])
 def test_decode_png_equals_cv2_imdecode(name):
-    path = next((HOLDOUT / "MegaDepth_v1").rglob(name))
+    path = next(HOLDOUT_SCENES.rglob(name))
     data = path.read_bytes()
     ref = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     got = decode_png(data)

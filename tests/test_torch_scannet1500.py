@@ -11,7 +11,6 @@ equal to one process under `np.array_equal`."""
 import json
 import os
 import sys
-from pathlib import Path
 
 import cv2
 import numpy as np
@@ -20,10 +19,9 @@ import pytest
 from accelerated_features_tpu.eval import scannet1500 as jsn
 from accelerated_features_tpu_torch.eval import scannet1500 as sn
 
-ROOT = Path(__file__).resolve().parents[1]
-FIXTURE = ROOT / "tests" / "fixtures" / "scannet1500_mini"
-NPZ = str(FIXTURE / "test.npz")
-CKPT = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
+from torch_support import CKPT, SCANNET_MINI
+
+NPZ = str(SCANNET_MINI / "test.npz")
 
 
 def _pair_set(mk0, mk1):
@@ -35,15 +33,16 @@ def _pair_set(mk0, mk1):
 def test_pair_list_poses_and_ground_truth_equal_jax():
     pairs = sn.load_pair_list(NPZ)
     assert pairs == jsn.load_pair_list(NPZ) and len(pairs) == 6
-    gt = sn.load_ground_truth(str(FIXTURE), pairs)
+    gt = sn.load_ground_truth(str(SCANNET_MINI), pairs)
     for pair, g in zip(pairs, gt):
-        p0 = sn.read_pose(str(FIXTURE / pair["pose0"]))
-        p1 = sn.read_pose(str(FIXTURE / pair["pose1"]))
-        assert np.array_equal(p0, jsn.read_pose(str(FIXTURE / pair["pose0"])))
+        p0 = sn.read_pose(str(SCANNET_MINI / pair["pose0"]))
+        p1 = sn.read_pose(str(SCANNET_MINI / pair["pose1"]))
+        assert np.array_equal(
+            p0, jsn.read_pose(str(SCANNET_MINI / pair["pose0"])))
         T = sn.rel_pose_0to1(p0, p1)
         assert np.array_equal(T, jsn.rel_pose_0to1(p0, p1))
         assert np.array_equal(g["T_0to1"], T)
-        K = np.loadtxt(str(FIXTURE / pair["intrinsic"]))[:3, :3]
+        K = np.loadtxt(str(SCANNET_MINI / pair["intrinsic"]))[:3, :3]
         assert np.array_equal(g["K"], K)
     assert sn.THRESHOLDS == jsn.THRESHOLDS
 
@@ -264,15 +263,15 @@ def test_batched_matches_equal_jax_and_per_pair():
     from accelerated_features_tpu_torch.eval.megadepth1500 import \
         make_matcher
     pairs = sn.load_pair_list(NPZ)
-    got = sn.extract_matches_batched(str(FIXTURE), pairs, top_k=512,
+    got = sn.extract_matches_batched(str(SCANNET_MINI), pairs, top_k=512,
                                      weights=CKPT, batch_size=4,
                                      progress=False, device="cpu")
-    ref = jsn.extract_matches_batched(str(FIXTURE), pairs, top_k=512,
+    ref = jsn.extract_matches_batched(str(SCANNET_MINI), pairs, top_k=512,
                                       weights=CKPT, batch_size=4,
                                       progress=False)
     per_pair = sn.extract_matches(make_matcher("xfeat", 512, CKPT,
                                                device="cpu"),
-                                  str(FIXTURE), pairs, progress=False)
+                                  str(SCANNET_MINI), pairs, progress=False)
     assert len(got) == len(ref) == len(per_pair) == 6
     for (g0, g1), (r0, r1), (p0, p1) in zip(got, ref, per_pair):
         assert len(g0) > 50

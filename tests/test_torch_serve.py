@@ -22,6 +22,8 @@ import torch
 from accelerated_features_tpu_torch.apps import serve as serve_mod
 from accelerated_features_tpu_torch.apps.serve import serve
 
+from torch_support import SCANNET_MINI
+
 THR = 0.012  # random weights: the untrained softmax mass is ~1/65
 
 
@@ -278,14 +280,10 @@ def test_jpeg_body_is_decoded_without_cv2(server, monkeypatch):
     """A JPEG body (a 640x480 ScanNet-layout frame) is read by
     `decode_jpeg`, with cv2 not importable; /detect answers what the same
     decoded image sent as PNG gets, and what the direct call gives."""
-    from pathlib import Path
-
     from accelerated_features_tpu_torch.utils.imageio import decode_jpeg
     monkeypatch.setitem(sys.modules, "cv2", None)
     port = server.server_address[1]
-    fixture = Path(__file__).resolve().parent / "fixtures" / \
-        "scannet1500_mini" / "scene0000_00" / "color"
-    jpg = (fixture / "0.jpg").read_bytes()
+    jpg = (SCANNET_MINI / "scene0000_00" / "color" / "0.jpg").read_bytes()
     bgr = decode_jpeg(jpg)
     png = _png(np.ascontiguousarray(bgr[..., ::-1]))
     path = "/detect?threshold=0.012&top_k=256"

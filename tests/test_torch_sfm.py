@@ -26,7 +26,7 @@ from accelerated_features_tpu_torch.sfm import ba, slam, tracks
 from accelerated_features_tpu_torch.train import render
 from accelerated_features_tpu_torch.utils.imageio import load_textures
 
-from test_torch_imageio import HOLDOUT
+from torch_support import HOLDOUT_SCENES, close
 
 K_SYN = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
 
@@ -101,17 +101,6 @@ def _port_problem(a):
         else torch.from_numpy(v) for k, v in a.items()})
 
 
-def _close(got, ref, rel):
-    """|got - ref| <= rel * max|ref| elementwise: float32 rounding of sums
-    whose terms reach max|ref|."""
-    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
-    ref = np.asarray(ref)
-    assert got.shape == ref.shape
-    scale = max(float(np.abs(ref).max()), 1e-30)
-    err = float(np.abs(got - ref).max()) / scale
-    assert err <= rel, (err, rel)
-
-
 # ---------------------------------------------------------------------- BA
 
 def test_project_matches_jax():
@@ -122,7 +111,7 @@ def test_project_matches_jax():
         jnp.asarray(cams), jnp.asarray(pts), jnp.asarray(a["K"]))
     got = ba.project(torch.from_numpy(cams), torch.from_numpy(pts),
                      torch.from_numpy(a["K"]))
-    _close(got, ref, 1e-6)
+    close(got, ref, 1e-6)
 
 
 @pytest.mark.parametrize("kind", ["plain", "masked", "two fixed cameras"])
@@ -136,7 +125,7 @@ def test_residuals_and_jacobians_match_jax(kind):
     got = ba.residuals_and_jacobians(_port_problem(
         {k: v for k, v in a.items() if v is not None}))
     for g, r in zip(got, ref):
-        _close(g, r, 1e-6)
+        close(g, r, 1e-6)
     if kind == "masked":
         assert not got[0][~torch.from_numpy(a["obs_mask"])].any()
     if kind == "two fixed cameras":
@@ -155,7 +144,7 @@ def test_build_normal_blocks_matches_jax():
     a closed-form inverse whose determinant cancels, to 1e-5."""
     _, ref, got = _blocks()
     for g, r, rel in zip(got, ref, (2e-6, 1e-5, 2e-6, 2e-6, 2e-6, 2e-6)):
-        _close(g, r, rel)
+        close(g, r, rel)
 
 
 def test_schur_matvec_matches_jax():
@@ -170,7 +159,7 @@ def test_schur_matvec_matches_jax():
     got = ba.schur_matvec(torch.from_numpy(x), *map(torch.from_numpy,
                                                     (U, Vinv, W)),
                           p.obs_cam, p.obs_pt, ba.segment_tables(p))
-    _close(got, want, 1e-5)
+    close(got, want, 1e-5)
 
 
 @pytest.mark.parametrize("precond", [False, True])
@@ -193,7 +182,7 @@ def test_cg_solve_matches_jax(precond):
         lambda x: (t(A) @ x.reshape(-1)).reshape(6, 6), t(b), 12,
         precond_mv=(lambda r: torch.einsum("cij,cj->ci", t(Minv), r))
         if precond else None)
-    _close(got, want, 1e-5)
+    close(got, want, 1e-5)
     exact = np.linalg.solve(A.astype(np.float64), b.reshape(-1).astype(
         np.float64)).reshape(6, 6)
     assert np.abs(got.numpy() - exact).max() < np.abs(exact).max()
@@ -207,9 +196,9 @@ def test_ba_step_matches_jax():
     a = _ba_arrays(seed=4, fixed=(0, 1))
     want, wcost = jba.ba_step(_jax_problem(a), 1e-3, 25)
     got, gcost = ba.ba_step(_port_problem(a), 1e-3, 25)
-    _close(gcost, wcost, 1e-6)
-    _close(got.cams, want.cams, 1e-3)
-    _close(got.points, want.points, 1e-3)
+    close(gcost, wcost, 1e-6)
+    close(got.cams, want.cams, 1e-3)
+    close(got.points, want.points, 1e-3)
 
 
 def _jax_bundle_adjust(a, **kw):
@@ -223,10 +212,10 @@ def test_bundle_adjust_matches_jax():
     want, winfo = _jax_bundle_adjust(a, iters=15, cg_iters=40)
     got, ginfo = ba.bundle_adjust(_port_problem(a), iters=15, cg_iters=40)
     for k in ("initial_cost", "final_cost", "final_lambda"):
-        _close(ginfo[k], winfo[k], 1e-4)
-    _close(got.cams, want.cams, 1e-4)
-    _close(got.points, want.points, 1e-4)
-    _close(ba.reprojection_rmse(got), jba.reprojection_rmse(want), 1e-4)
+        close(ginfo[k], winfo[k], 1e-4)
+    close(got.cams, want.cams, 1e-4)
+    close(got.points, want.points, 1e-4)
+    close(ba.reprojection_rmse(got), jba.reprojection_rmse(want), 1e-4)
     assert float(ba.reprojection_rmse(got)) < 2.0   # ~noise level (1 px)
     assert float(ginfo["final_cost"]) < float(ginfo["initial_cost"]) / 9
 
@@ -237,9 +226,9 @@ def test_bundle_adjust_free_scale_matches_jax_in_cost():
     a = _ba_arrays(seed=0)
     want, winfo = _jax_bundle_adjust(a, iters=15, cg_iters=40)
     got, ginfo = ba.bundle_adjust(_port_problem(a), iters=15, cg_iters=40)
-    _close(ginfo["final_cost"], winfo["final_cost"], 1e-4)
-    _close(ba.reprojection_rmse(got), jba.reprojection_rmse(want), 1e-4)
-    _close(got.cams, want.cams, 1e-2)
+    close(ginfo["final_cost"], winfo["final_cost"], 1e-4)
+    close(ba.reprojection_rmse(got), jba.reprojection_rmse(want), 1e-4)
+    close(got.cams, want.cams, 1e-2)
 
 
 def test_bundle_adjust_ignores_masked_garbage_observations():
@@ -252,9 +241,9 @@ def test_bundle_adjust_ignores_masked_garbage_observations():
     s2, info = ba.bundle_adjust(_port_problem(padded), iters=5, cg_iters=30)
     np.testing.assert_allclose(s2.cams.numpy(), s1.cams.numpy(), atol=1e-4)
     want, winfo = _jax_bundle_adjust(padded, iters=5, cg_iters=30)
-    _close(s2.cams, want.cams, 1e-4)
-    _close(info["final_cost"], winfo["final_cost"], 1e-4)
-    _close(ba.reprojection_rmse(s2), jba.reprojection_rmse(want), 1e-4)
+    close(s2.cams, want.cams, 1e-4)
+    close(info["final_cost"], winfo["final_cost"], 1e-4)
+    close(ba.reprojection_rmse(s2), jba.reprojection_rmse(want), 1e-4)
 
 
 def test_block_jacobi_pcg_converges_faster():
@@ -324,7 +313,7 @@ def test_optimize_pose_graph_matches_jax(robust_c):
     got, ginfo = sfm.optimize_pose_graph(pg, iters=20, robust_c=robust_c,
                                          device="cpu")
     assert got.dtype == np.float32 and got.shape == want.shape
-    _close(got, want, 1e-4)
+    close(got, want, 1e-4)
     for k in ("initial_cost", "final_cost"):
         assert ginfo[k] == pytest.approx(winfo[k], rel=1e-4)
     assert ginfo["final_cost"] < ginfo["initial_cost"]
@@ -372,7 +361,7 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
     for call in (lambda: sfm.IncrementalSlam(K_SYN),
                  lambda: sfm.optimize_pose_graph(g),
                  lambda: sfm.two_view_reconstruction(p0, p0 + 3, K_SYN),
-                 lambda: eval_slam.main(["--textures", str(HOLDOUT)])):
+                 lambda: eval_slam.main(["--textures", str(HOLDOUT_SCENES)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -462,12 +451,12 @@ def test_two_view_reconstruction_matches_jax():
     assert np.array_equal(gmask, wmask) and gmask.sum() > 120
     assert np.array_equal(gp.points.numpy(), np.asarray(wp.points))
     assert np.array_equal(gp.obs_uv.numpy(), np.asarray(wp.obs_uv))
-    _close(gp.cams, wp.cams, 1e-6)
+    close(gp.cams, wp.cams, 1e-6)
     assert gp.fixed_cams.tolist() == [True, False]
     ws, winfo = jax.jit(lambda p: jba.bundle_adjust(p, iters=10,
                                                     cg_iters=30))(wp)
     gs, ginfo = ba.bundle_adjust(gp, iters=10, cg_iters=30)
-    _close(ginfo["final_cost"], winfo["final_cost"], 1e-4)
+    close(ginfo["final_cost"], winfo["final_cost"], 1e-4)
     assert float(ba.reprojection_rmse(gs)) < 1.5
 
 
@@ -642,7 +631,7 @@ def test_slam_loop_closure_collapses_drift_in_both(scenario_runs):
 def rendered():
     """An 8-frame 320x240 loop through a scene textured with crops of the
     holdout PNGs, rendered by both packages from the same draws."""
-    texs = load_textures(HOLDOUT, 16, np.random.default_rng(3))
+    texs = load_textures(HOLDOUT_SCENES, 16, np.random.default_rng(3))
     trajs = [r.render_trajectory(np.random.default_rng(30), texs, 8, 320,
                                  240, n_quads=16, arc_deg=35.0, loop=True)
              for r in (render, jrender)]
@@ -663,20 +652,61 @@ def xfeat_cpu():
     return XFeat(top_k=512, device="cpu")
 
 
-def test_slam_on_rendered_frames_matches_jax(rendered, xfeat_cpu):
+@pytest.fixture(scope="module")
+def rendered_features(rendered, xfeat_cpu):
     """The port's XFeat features of the rendered frames (trained weights,
-    top_k 512), injected into both trackers with the port's MNN: equal
-    discrete outcomes; trajectories within 3e-2 of their extent after a
-    similarity alignment (measured 1.4e-2: the window BAs of real matches
-    start farther from their optimum, and each package's rounding moves
-    its scale differently from the third window on); the last window BA's
-    RMSE within 0.2 px (measured 0.09 px, after a loop closure)."""
+    top_k 512), its MNN matcher and the frames' K."""
     traj = rendered[0]
     extract, match = slam.xfeat_frontend(xfeat_cpu)
-    feats = [extract(im) for im in traj["images"]]
-    out = _run_both(feats, {}, K=traj["K"], match=match)
+    return [extract(im) for im in traj["images"]], match, traj["K"]
+
+
+def test_slam_on_rendered_frames_matches_jax(rendered_features):
+    """The rendered frames' features injected into both trackers with the
+    port's MNN: equal discrete outcomes; trajectories within 3e-2 of their
+    extent after a similarity alignment (measured 1.4e-2: the window BAs
+    of real matches start farther from their optimum, and each package's
+    rounding moves its scale differently from the third window on); the
+    last window BA's RMSE within 0.2 px (measured 0.09 px, after a loop
+    closure)."""
+    feats, match, K = rendered_features
+    out = _run_both(feats, {}, K=K, match=match)
     _same_run(out, 3e-2, 0.2)
     assert len(out["port"][0].keyframes) >= 2
+
+
+def _port_run_on_threads(feats, match, K, threads):
+    """The port's tracker on injected features with a torch pool of
+    `threads`; the caller's pool size is restored."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        it = iter(feats)
+        tracker = slam.IncrementalSlam(
+            K, slam.SlamConfig(), extract=lambda _im: next(it), match=match,
+            device="cpu")
+        return tracker, [tracker.process_frame(None) for _ in feats]
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_slam_answer_does_not_depend_on_the_pool_size(rendered_features):
+    """The port's tracker on the rendered frames' injected features with
+    torch pools of 1 and 8 threads: the same keyframes, inliers, loop
+    closures and relocalizations, and the trajectory and the last window
+    BA's RMSE equal bit for bit. CPU reductions that group their terms by
+    the pool's size once gave the third window BA's normal blocks another
+    rounding (7.9e-7 relative), which the solve grew to 0.22 in a camera
+    and the tracker to a second loop closure on one thread."""
+    runs = [_port_run_on_threads(*rendered_features, n) for n in (1, 8)]
+    (t1, o1), (t8, o8) = runs
+    assert t1.keyframe_frame_ids().tolist() == t8.keyframe_frame_ids().tolist()
+    for k in ("is_keyframe", "n_inliers", "loop_closed", "relocalized"):
+        assert [o[k] for o in o1] == [o[k] for o in o8], k
+    assert t1.n_loop_closures == t8.n_loop_closures
+    assert t1.n_relocalizations == t8.n_relocalizations
+    assert np.array_equal(t1.trajectory(), t8.trajectory())
+    assert t1.last_ba_rmse == t8.last_ba_rmse
 
 
 @pytest.fixture(scope="module")
@@ -720,7 +750,7 @@ def test_window_ba_problem_matches_jax(default_run):
         float(winfo["final_cost"]), rel=1e-3)
     assert float(ba.reprojection_rmse(got)) == pytest.approx(
         float(jba.reprojection_rmse(want)), rel=1e-3)
-    _close(got.cams, want.cams, 1e-2)
+    close(got.cams, want.cams, 1e-2)
 
 
 def test_eval_slam_app_on_cpu(tmp_path):
@@ -728,7 +758,7 @@ def test_eval_slam_app_on_cpu(tmp_path):
     import json
 
     from accelerated_features_tpu_torch.apps import eval_slam
-    res = eval_slam.main(["--textures", str(HOLDOUT), "--frames", "6",
+    res = eval_slam.main(["--textures", str(HOLDOUT_SCENES), "--frames", "6",
                           "--res", "320x240", "--seed", "3", "--top_k",
                           "512", "--device", "cpu", "--json",
                           str(tmp_path / "out.json")])

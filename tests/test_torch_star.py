@@ -5,7 +5,6 @@ seeded numpy inputs and the trained extractor go through both packages;
 tolerances are stated per test."""
 
 import functools
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,12 +28,8 @@ from accelerated_features_tpu_torch.models.params import load_params
 from accelerated_features_tpu_torch.ops import (detect, extraction, matching,
                                                 refine)
 
-ROOT = Path(__file__).resolve().parents[1]
-CKPT = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
+from torch_support import CKPT, t
 
-
-def t(a):
-    return torch.tensor(np.asarray(a))
 
 
 def texture(seed, h, w):

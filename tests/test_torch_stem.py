@@ -7,7 +7,6 @@ package and carried across as numpy. The Pallas stem kernel runs in
 interpret mode. Tolerances are stated per test."""
 
 import functools
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,9 +30,8 @@ from accelerated_features_tpu_torch.ops import extraction
 from accelerated_features_tpu_torch.ops.cuda import stem_fused as stem
 from accelerated_features_tpu_torch.ops.matching import batch_mnn_match
 
-ROOT = Path(__file__).resolve().parents[1]
-CKPT = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
-LG_CKPT = str(ROOT / "artifacts" / "lighterglue_ft_ckpt7791.npz")
+from torch_support import CKPT, LG_CKPT
+
 
 
 def to_numpy(tree):

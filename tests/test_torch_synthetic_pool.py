@@ -36,7 +36,8 @@ import cv2
 import numpy as np
 import pytest
 
-ROOT = Path(__file__).resolve().parents[1]
+from torch_support import FIXTURES, ROOT
+
 BLOCKED = ("cv2", "h5py", "jax")
 
 # name -> the CLI arguments both apps take (the output dir is appended)
@@ -54,7 +55,7 @@ RUNS = {
     "v2_800_s0": ["--res", "800x608", "--n", "3", "--holdout", "1"],
 }
 V1 = [name for name in RUNS if name.startswith("v1")]
-DIGESTS = ROOT / "tests" / "fixtures" / "synthetic_pool_v1_s0_800x608.json"
+DIGESTS = FIXTURES / "synthetic_pool_v1_s0_800x608.json"
 
 
 def _jax_app():

@@ -5,7 +5,6 @@ tensor-core products keep the float32 gates of the kernels? A single TF32
 pass must fail the same checks, so the tests can tell the two apart."""
 
 import math
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,8 +28,8 @@ from accelerated_features_tpu_torch.ops.precision import (full_fp32_convs,
                                                           tf32_split,
                                                           tf32x3_matmul)
 
-ROOT = Path(__file__).resolve().parents[1]
-CKPT = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
+from torch_support import CKPT, HOLDOUT_SCENES
+
 SOURCES = ("holdout", "seeded")
 
 
@@ -38,8 +37,7 @@ def _holdout_descriptors():
     """Descriptors of one pair of the committed rendered holdout, extracted
     by the port on the CPU: (1,K,64) each, K = 2048 (the eval's top_k)."""
     cv2 = pytest.importorskip("cv2")
-    scene = (ROOT / "artifacts" / "rendered_pose_holdout" / "MegaDepth_v1"
-             / "rendered" / "holdout_0012" / "imgs")
+    scene = HOLDOUT_SCENES / "rendered" / "holdout_0012" / "imgs"
     xf = XFeat(weights=CKPT, top_k=2048, device="cpu")
     descs = []
     for name in ("view_0.png", "view_1.png"):

@@ -27,22 +27,13 @@ from accelerated_features_tpu_torch.train.lighterglue_run import \
     init_lg_train_state
 from accelerated_features_tpu_torch.utils import checkpoint as tck
 
-ART = Path(__file__).resolve().parents[1] / "artifacts"
+from torch_support import ARTIFACTS, LG_CKPT, leaves
+
 CFG = dict(use_distill=False, use_kp_position=True)
 
 
-def _leaves(tree, prefix=""):
-    if isinstance(tree, dict):
-        return {k2: v2 for k, v in tree.items()
-                for k2, v2 in _leaves(v, f"{prefix}{k}/").items()}
-    if isinstance(tree, (list, tuple)):
-        return {k2: v2 for i, v in enumerate(tree)
-                for k2, v2 in _leaves(v, f"{prefix}{i}/").items()}
-    return {prefix[:-1]: np.asarray(tree)}
-
-
 def _equal_trees(a, b):
-    la, lb = _leaves(a), _leaves(b)
+    la, lb = leaves(a), leaves(b)
     assert la.keys() == lb.keys()
     for k in la:
         np.testing.assert_array_equal(la[k], lb[k], err_msg=k)
@@ -52,7 +43,7 @@ def test_params_to_jax_inverts_params_from_jax():
     tree = init_xfeat_params(torch.Generator().manual_seed(1))
     back = params_to_jax(params_from_jax(tree))
     _equal_trees(back, tree)
-    assert _leaves(back)["block1/0/w"].shape == (3, 3, 1, 4)
+    assert leaves(back)["block1/0/w"].shape == (3, 3, 1, 4)
     lg = jax.tree.map(np.asarray, jlg.init_lighterglue_params(
         jax.random.key(0), jlg.DEFAULT_CONF))
     from accelerated_features_tpu_torch.models.params import \
@@ -64,7 +55,7 @@ def test_committed_train_state_resumes_at_step_3000():
     """artifacts/run_tf_ckpt3000.npz (the JAX trainer's state) restores
     into the port's train state at step 3000 with its Adam moments, and
     `XFeat(weights=that file)` detects keypoints."""
-    path = str(ART / "run_tf_ckpt3000.npz")
+    path = str(ARTIFACTS / "run_tf_ckpt3000.npz")
     target = tt.init_train_state(params_from_jax(init_xfeat_params()),
                                  tt.TrainConfig(**CFG))
     state = tck.restore_checkpoint(path, target)
@@ -138,7 +129,7 @@ def test_port_reads_jax_checkpoints(tmp_path):
         params_from_jax(init_xfeat_params()), tt.TrainConfig(**CFG)))
     _equal_trees(params_to_jax(state["params"]), jstate["params"])
 
-    lg_path = str(ART / "lighterglue_ft_ckpt7791.npz")
+    lg_path = LG_CKPT
     params = init_lighterglue_params(torch.Generator().manual_seed(0),
                                      DEFAULT_CONF)
     lg = tck.restore_checkpoint(lg_path, init_lg_train_state(
@@ -190,8 +181,8 @@ def test_port_reads_jax_orbax_checkpoints(tmp_path, monkeypatch):
                  jstate["params"])
     xf = XFeat(weights=str(ck), top_k=16, device="cpu")
     ref = XFeat(weights=jstate["params"], top_k=16, device="cpu")
-    for a, b in zip(_leaves(xf.model.params).values(),
-                    _leaves(ref.model.params).values()):
+    for a, b in zip(leaves(xf.model.params).values(),
+                    leaves(ref.model.params).values()):
         np.testing.assert_array_equal(a, b)
 
     lg_params = jlg.init_lighterglue_params(jax.random.key(6),

@@ -10,8 +10,6 @@ Tolerances: losses rtol 1e-5; gradients max |diff| <= 1e-4 x the leaf's
 max |g|; keypoints and descriptors of the frozen extractor as the
 pipeline parity tests hold them (equal keypoints, descriptors atol 1e-5)."""
 
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,23 +29,9 @@ from accelerated_features_tpu_torch.train import augmentation as ta
 from accelerated_features_tpu_torch.train import lighterglue_loss as tll
 from accelerated_features_tpu_torch.train import lighterglue_run as trun
 
-ROOT = Path(__file__).resolve().parents[1]
-XF_CKPT = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
+from torch_support import CKPT, leaves, t
+
 SMALL = {**jlg.DEFAULT_CONF, "descriptor_dim": 32, "n_layers": 2}
-
-
-def _t(a):
-    return torch.tensor(np.asarray(a))
-
-
-def _leaves(tree, prefix=""):
-    if isinstance(tree, dict):
-        return {k2: v2 for k, v in tree.items()
-                for k2, v2 in _leaves(v, f"{prefix}{k}/").items()}
-    if isinstance(tree, (list, tuple)):
-        return {k2: v2 for i, v in enumerate(tree)
-                for k2, v2 in _leaves(v, f"{prefix}{i}/").items()}
-    return {prefix[:-1]: np.asarray(tree)}
 
 
 def _lg_batch(rng, b=2, m=24, s=10):
@@ -79,8 +63,8 @@ def test_assignment_nll():
     def jf(x):
         return jll.assignment_nll(x, *[jnp.asarray(b[k]) for k in args])[0]
     jv, jg = jax.value_and_grad(jf)(jnp.asarray(la))
-    x = _t(la).requires_grad_()
-    tv, tm = tll.assignment_nll(x, *[_t(b[k]) for k in args])
+    x = t(la).requires_grad_()
+    tv, tm = tll.assignment_nll(x, *[t(b[k]) for k in args])
     tv.backward()
     assert float(tv.detach()) == pytest.approx(float(jv), rel=1e-5)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg), atol=1e-7)
@@ -100,10 +84,10 @@ def test_lighterglue_loss_gradients():
         lambda p: jll.lighterglue_loss(p, jbatch), has_aux=True))(jparams)
     before = attention.attention_backward.launches
     tloss, _, tg = trun.loss_and_grads(load_lighterglue_params(jparams),
-                                       {k: _t(v) for k, v in batch.items()})
+                                       {k: t(v) for k, v in batch.items()})
     assert attention.attention_backward.launches == before  # plain on CPU
     assert float(tloss) == pytest.approx(float(jloss), rel=1e-5)
-    jgl, tgl = _leaves(jg), _leaves(params_to_jax(tg))
+    jgl, tgl = leaves(jg), leaves(params_to_jax(tg))
     assert jgl.keys() == tgl.keys()
     for k, g in jgl.items():
         assert np.abs(tgl[k] - g).max() <= 1e-4 * np.abs(g).max() + 1e-30, k
@@ -122,11 +106,11 @@ def test_build_lg_batch():
     cfg_t = ta.AugConfig(warp_resolution=(256, 192),
                          out_resolution=(256, 192), photometric=False)
     pair_j = ja.make_pair(jax.random.key(1), jnp.asarray(imgs), cfg_j)
-    pair_t = {k: (tuple(_t(x) for x in v) if k == "tps2" else _t(v))
+    pair_t = {k: (tuple(t(x) for x in v) if k == "tps2" else t(v))
               for k, v in pair_j.items()}
-    jb = jrun.build_lg_batch(jax_load_params(XF_CKPT), pair_j, cfg_j,
+    jb = jrun.build_lg_batch(jax_load_params(CKPT), pair_j, cfg_j,
                              top_k=128)
-    tb = trun.build_lg_batch(load_params(XF_CKPT), pair_t, cfg_t, top_k=128)
+    tb = trun.build_lg_batch(load_params(CKPT), pair_t, cfg_t, top_k=128)
     for k in ("kpts0", "kpts1", "mask0", "mask1", "size0"):
         np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]), k)
     for k in ("descs0", "descs1"):
@@ -150,7 +134,7 @@ def test_lighterglue_run_two_steps_on_the_cpu(tmp_path):
         cv2.imwrite(str(folder / f"im{i}.png"),
                     cv2.resize(g, (160, 120), interpolation=cv2.INTER_CUBIC))
     args = ["--synthetic_root_path", str(folder), "--ckpt_save_path",
-            str(tmp_path / "lg"), "--xfeat_weights", XF_CKPT, "--device",
+            str(tmp_path / "lg"), "--xfeat_weights", CKPT, "--device",
             "cpu", "--training_res", "128,96", "--batch_size", "2",
             "--top_k", "64"]
     history = trun.main(args + ["--n_steps", "2"])

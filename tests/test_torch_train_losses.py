@@ -23,12 +23,9 @@ from accelerated_features_tpu_torch.ops.cuda import attention
 from accelerated_features_tpu_torch.train import losses as tl
 from accelerated_features_tpu_torch.train import utils as tu
 
+from torch_support import t
+
 M = 32
-
-
-def _t(a, grad=False):
-    x = torch.tensor(np.asarray(a))
-    return x.requires_grad_() if grad else x
 
 
 def check_value_and_grads(jfn, tfn, *inputs):
@@ -36,7 +33,7 @@ def check_value_and_grads(jfn, tfn, *inputs):
     value (rtol 1e-5) and every input's gradient (1e-4 x its max)."""
     jv, jg = jax.value_and_grad(jfn, argnums=tuple(range(len(inputs))))(
         *[jnp.asarray(a) for a in inputs])
-    ts = [_t(a, grad=True) for a in inputs]
+    ts = [t(a, grad=True) for a in inputs]
     tv = tfn(*ts)
     tv.backward()
     np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-5,
@@ -66,11 +63,11 @@ def test_dual_softmax_loss(data):
     v = data["valid"]
     check_value_and_grads(
         lambda a, b: jl.dual_softmax_loss(a, b, jnp.asarray(v))[0],
-        lambda a, b: tl.dual_softmax_loss(a, b, _t(v))[0],
+        lambda a, b: tl.dual_softmax_loss(a, b, t(v))[0],
         data["m1"], data["m2"])
     _, jc = jl.dual_softmax_loss(jnp.asarray(data["m1"]),
                                  jnp.asarray(data["m2"]), jnp.asarray(v))
-    _, tc = tl.dual_softmax_loss(_t(data["m1"]), _t(data["m2"]), _t(v))
+    _, tc = tl.dual_softmax_loss(t(data["m1"]), t(data["m2"]), t(v))
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5,
                                atol=1e-7)
 
@@ -81,12 +78,12 @@ def test_coordinate_classification_loss(data):
         lambda c: jl.coordinate_classification_loss(
             c, jnp.asarray(pts), jnp.asarray(conf), jnp.asarray(v))[0],
         lambda c: tl.coordinate_classification_loss(
-            c, _t(pts), _t(conf), _t(v))[0], data["logits"])
+            c, t(pts), t(conf), t(v))[0], data["logits"])
     ja = jl.coordinate_classification_loss(
         jnp.asarray(data["logits"]), jnp.asarray(pts), jnp.asarray(conf),
         jnp.asarray(v))[1]
     ta = tl.coordinate_classification_loss(
-        _t(data["logits"]), _t(pts), _t(conf), _t(v))[1]
+        t(data["logits"]), t(pts), t(conf), t(v))[1]
     assert float(ta) == pytest.approx(float(ja), rel=1e-6)
 
 
@@ -95,7 +92,7 @@ def test_keypoint_reliability_loss(data):
     check_value_and_grads(
         lambda a, b: jl.keypoint_reliability_loss(a, b, jnp.asarray(conf),
                                                   jnp.asarray(v)),
-        lambda a, b: tl.keypoint_reliability_loss(a, b, _t(conf), _t(v)),
+        lambda a, b: tl.keypoint_reliability_loss(a, b, t(conf), t(v)),
         data["h1"], data["h2"])
 
 
@@ -111,7 +108,7 @@ def test_distill_labels_and_loss_with_injected_keep_mask():
     h, w = 6, 8
     jlab = np.asarray(jl.distill_labels_from_kpts(jnp.asarray(kpts),
                                                   jnp.asarray(valid), h, w))
-    tlab = tl.distill_labels_from_kpts(_t(kpts), _t(valid), h, w)
+    tlab = tl.distill_labels_from_kpts(t(kpts), t(valid), h, w)
     np.testing.assert_array_equal(tlab.numpy(), jlab)
     assert (jlab < 64).sum() > 10
 
@@ -128,9 +125,9 @@ def test_distill_labels_and_loss_with_injected_keep_mask():
     logits = rng.normal(size=(h, w, 65)).astype(np.float32)
     check_value_and_grads(
         lambda x: jl.distill_loss(x, jnp.asarray(jlab), key)[0],
-        lambda x: tl.distill_loss(x, tlab, keep_neg=_t(keep))[0], logits)
+        lambda x: tl.distill_loss(x, tlab, keep_neg=t(keep))[0], logits)
     g = torch.Generator().manual_seed(0)
-    loss, acc = tl.distill_loss(_t(logits), tlab, g)
+    loss, acc = tl.distill_loss(t(logits), tlab, g)
     assert torch.isfinite(loss) and 0 <= float(acc) <= 1
 
 
@@ -138,7 +135,7 @@ def test_hard_triplet_and_smooth_l1(data):
     v = data["valid"]
     check_value_and_grads(
         lambda a, b: jl.hard_triplet_loss(a, b, jnp.asarray(v)),
-        lambda a, b: tl.hard_triplet_loss(a, b, _t(v)),
+        lambda a, b: tl.hard_triplet_loss(a, b, t(v)),
         data["m1"] * 0.1, data["m2"] * 0.1)
     rng = np.random.default_rng(8)
     x = rng.normal(size=(M, 3)).astype(np.float32) * 3
@@ -150,7 +147,7 @@ def test_hard_triplet_and_smooth_l1(data):
                     a, jnp.asarray(y), valid=None if valid is None
                     else jnp.asarray(valid), size_average=avg),
                 lambda a: tl.smooth_l1_loss(
-                    a, _t(y), valid=None if valid is None else _t(valid),
+                    a, t(y), valid=None if valid is None else t(valid),
                     size_average=avg), x)
 
 
@@ -171,12 +168,12 @@ def test_keypoint_position_loss():
         lambda a, b: jl.keypoint_position_loss(
             a, b, jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid))[0],
         lambda a, b: tl.keypoint_position_loss(
-            a, b, _t(p1), _t(p2), _t(valid))[0], logits1, logits2)
+            a, b, t(p1), t(p2), t(valid))[0], logits1, logits2)
     ja = jl.keypoint_position_loss(
         jnp.asarray(logits1), jnp.asarray(logits2), jnp.asarray(p1),
         jnp.asarray(p2), jnp.asarray(valid))
-    ta = tl.keypoint_position_loss(_t(logits1), _t(logits2), _t(p1), _t(p2),
-                                   _t(valid))
+    ta = tl.keypoint_position_loss(t(logits1), t(logits2), t(p1), t(p2),
+                                   t(valid))
     assert float(ja[0]) > 0
     assert float(ta[1]) == pytest.approx(float(ja[1]), rel=1e-6)
 
@@ -194,9 +191,9 @@ def test_fine_loss_with_injected_offsets():
                                   lambda x, y: (x * 2, y), None,
                                   jnp.asarray(valid),
                                   offsets=jnp.asarray(offs)),
-        lambda a, b: tl.fine_loss(a, b, _t(p1), _t(p2),
-                                  lambda x, y: (x * 2, y), None, _t(valid),
-                                  offsets=_t(offs)), f1, f2)
+        lambda a, b: tl.fine_loss(a, b, t(p1), t(p2),
+                                  lambda x, y: (x * 2, y), None, t(valid),
+                                  offsets=t(offs)), f1, f2)
 
 
 def test_check_accuracy_and_crop_patches(data):
@@ -205,14 +202,14 @@ def test_check_accuracy_and_crop_patches(data):
     for valid in (None, v):
         ja = ju.check_accuracy(jnp.asarray(data["m1"]), jnp.asarray(m2),
                                None if valid is None else jnp.asarray(valid))
-        ta = tu.check_accuracy(_t(data["m1"]), _t(m2),
-                               None if valid is None else _t(valid))
+        ta = tu.check_accuracy(t(data["m1"]), t(m2),
+                               None if valid is None else t(valid))
         assert float(ta) == pytest.approx(float(ja), rel=1e-6)
     rng = np.random.default_rng(2)
     maps = rng.normal(size=(10, 12, 5)).astype(np.float32)
     coords = rng.integers(-2, 14, (9, 2)).astype(np.int32)
     np.testing.assert_array_equal(
-        tu.crop_patches(_t(maps), _t(coords)).numpy(),
+        tu.crop_patches(t(maps), t(coords)).numpy(),
         np.asarray(ju.crop_patches(jnp.asarray(maps), jnp.asarray(coords))))
 
 
@@ -225,7 +222,7 @@ def test_teacher_labels(tmp_path):
         return kpts[: 20 + int(img.mean() > 0.5)]
     jlab = np.asarray(ju.teacher_labels_for_batch(jnp.asarray(images),
                                                   teacher, max_kpts=30))
-    tlab = tu.teacher_labels_for_batch(_t(images), teacher, max_kpts=30)
+    tlab = tu.teacher_labels_for_batch(t(images), teacher, max_kpts=30)
     np.testing.assert_array_equal(tlab.numpy(), jlab)
     path = str(tmp_path / "teacher.npz")
     tu.save_teacher_keypoints(path, {"a": kpts})
@@ -260,12 +257,12 @@ def test_attention_backward_reference_matches_jax_grad(heads, masked):
     hd = d // heads
 
     def split(x):
-        return _t(x).reshape(b, -1, heads, hd).transpose(1, 2).reshape(
+        return t(x).reshape(b, -1, heads, hd).transpose(1, 2).reshape(
             b * heads, -1, hd)
 
     def merge(x):
         return x.reshape(b, heads, -1, hd).transpose(1, 2).reshape(b, -1, d)
-    mh = None if mask is None else _t(mask).repeat_interleave(heads, 0)
+    mh = None if mask is None else t(mask).repeat_interleave(heads, 0)
     scale = 1.0 / math.sqrt(hd)
     qh, kh, vh = split(q), split(k), split(v)
     o, lse = attention.attention_reference_lse(qh, kh, vh, mh, scale)
@@ -287,10 +284,10 @@ def test_flash_attention_autograd_on_the_cpu_uses_the_plain_backward():
     same function: its gradients equal autograd through
     `attention_reference`, and nothing is launched."""
     rng = np.random.default_rng(0)
-    q, k, v = (_t(rng.normal(size=(2, x, 32)).astype(np.float32), True)
+    q, k, v = (t(rng.normal(size=(2, x, 32)).astype(np.float32), True)
                for x in (30, 45, 45))
-    mask = _t(rng.uniform(size=(2, 45)) > 0.4)
-    g = _t(rng.normal(size=(2, 30, 32)).astype(np.float32))
+    mask = t(rng.uniform(size=(2, 45)) > 0.4)
+    g = t(rng.normal(size=(2, 30, 32)).astype(np.float32))
     before = (attention.flash_attention.launches,
               attention.attention_backward.launches)
     attention.flash_attention(q, k, v, mask).backward(g)

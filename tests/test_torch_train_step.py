@@ -42,14 +42,12 @@ from accelerated_features_tpu_torch.train import trainer as tt
 from accelerated_features_tpu_torch.utils.checkpoint import \
     restore_checkpoint
 
+from torch_support import leaves, t
+
 B, H, W, M = 2, 64, 64, 32
 # biases right before a BatchNorm: the batch mean removes them, so their
 # gradient is zero in exact arithmetic and rounding noise in float
 ZERO_GRAD = {f"fine_matcher/{i}/b" for i in range(4)}
-
-
-def _t(a):
-    return torch.tensor(np.asarray(a))
 
 
 @pytest.fixture(scope="module")
@@ -57,31 +55,20 @@ def params():
     return jax.tree.map(np.asarray, init_xfeat_params(jax.random.key(0)))
 
 
-def _leaves(tree, prefix=""):
-    """{path: numpy leaf} of a JAX-layout tree."""
-    if isinstance(tree, dict):
-        return {k2: v2 for k, v in tree.items()
-                for k2, v2 in _leaves(v, f"{prefix}{k}/").items()}
-    if isinstance(tree, (list, tuple)):
-        return {k2: v2 for i, v in enumerate(tree)
-                for k2, v2 in _leaves(v, f"{prefix}{i}/").items()}
-    return {prefix[:-1]: np.asarray(tree)}
-
-
 def test_xfeat_forward_train_mode(params):
     x = np.random.default_rng(0).uniform(size=(B, H, W, 1)) \
         .astype(np.float32)
     jf = jb.xfeat_forward(params, jnp.asarray(x), train=True)
-    tf = tb.xfeat_forward(params_from_jax(params), _t(x), train=True)
+    tf = tb.xfeat_forward(params_from_jax(params), t(x), train=True)
     for a, b in zip(jf[:3], tf[:3]):
         np.testing.assert_allclose(b.detach().numpy(), np.asarray(a),
                                    atol=5e-5, rtol=1e-4)
-    js, ts = _leaves(jf[3]), _leaves(params_to_jax(tf[3]))
+    js, ts = leaves(jf[3]), leaves(params_to_jax(tf[3]))
     assert js.keys() == ts.keys() and len(js) == 2 * 23
     for k in js:
         np.testing.assert_allclose(ts[k], js[k], atol=1e-5, rtol=1e-4)
     with pytest.raises(ValueError, match="fused_stem"):
-        tb.xfeat_forward(params_from_jax(params), _t(x), train=True,
+        tb.xfeat_forward(params_from_jax(params), t(x), train=True,
                          fused_stem=True)
 
 
@@ -94,8 +81,8 @@ def test_fine_matcher_train_mode_with_valid_rows(params):
             params, jnp.asarray(x), train=True,
             valid=None if v is None else jnp.asarray(v))
         to, ts = tb.fine_matcher_forward(
-            params_from_jax(params), _t(x), train=True,
-            valid=None if v is None else _t(v))
+            params_from_jax(params), t(x), train=True,
+            valid=None if v is None else t(v))
         np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo),
                                    atol=1e-5, rtol=1e-4)
         for a, b in zip(js, ts):
@@ -173,7 +160,7 @@ def _steps(params, mode, batch, dtype, monkeypatch, n_steps, tmp_path):
         return v.astype(dtype) if v.dtype == np.float32 else v
     jparams = jax.tree.map(lambda a: jnp.asarray(a, dtype), params)
     jbatch = {k: jnp.asarray(cast(v)) for k, v in batch.items()}
-    tbatch = {k: _t(cast(v)) for k, v in batch.items()}
+    tbatch = {k: t(cast(v)) for k, v in batch.items()}
     grad_fn = jax.jit(jax.value_and_grad(
         lambda p, r: jt.loss_fn(p, jbatch, r, jcfg), has_aux=True))
     step_fn = jax.jit(lambda s, r: jt.train_step(s, jbatch, r, jcfg))
@@ -183,11 +170,11 @@ def _steps(params, mode, batch, dtype, monkeypatch, n_steps, tmp_path):
         jax.tree.map(lambda a: a, params_from_jax(params)) if not wide else
         {k: v for k, v in _to64(params_from_jax(params)).items()}, tcfg)
     small_steps = {k: np.zeros(v.shape, int)
-                   for k, v in _leaves(params).items()}
+                   for k, v in leaves(params).items()}
     lr = jcfg.lr
     for step in range(1, n_steps + 1):
         key = jax.random.key(step)
-        keep = _t(_jax_keep_masks(batch, key)) if mode == "distill" else None
+        keep = t(_jax_keep_masks(batch, key)) if mode == "distill" else None
         if wide and step > 1:
             # the port's own state gives the same loss; then it takes JAX's
             # state (through a JAX-written checkpoint), so the step below
@@ -205,7 +192,7 @@ def _steps(params, mode, batch, dtype, monkeypatch, n_steps, tmp_path):
             tloss, _, tg = tt.value_and_grad(tstate["params"], tbatch, None,
                                              tcfg, keep)
             assert float(tloss) == pytest.approx(float(jloss), rel=1e-5)
-            jgl, tgl = _leaves(jg), _leaves(params_to_jax(tg))
+            jgl, tgl = leaves(jg), leaves(params_to_jax(tg))
             top = max(np.abs(g).max() for g in jgl.values())
             for k, g in jgl.items():
                 scale = np.abs(g).max()
@@ -224,7 +211,7 @@ def _steps(params, mode, batch, dtype, monkeypatch, n_steps, tmp_path):
                                                    abs=1e-7), (step, k)
         if not wide:
             continue
-        jp, tp = _leaves(jstate["params"]), _leaves(params_to_jax(
+        jp, tp = leaves(jstate["params"]), leaves(params_to_jax(
             tstate["params"]))
         for k, a in jp.items():
             if k.endswith("/mean") or k.endswith("/var"):
@@ -237,7 +224,7 @@ def _steps(params, mode, batch, dtype, monkeypatch, n_steps, tmp_path):
         assert int(adam_t.count) == int(adam_j.count) == step
         assert int(tstate["opt_state"][2].count) == step
         for name, rel, power in (("mu", 1e-4, 1), ("nu", 2e-4, 2)):
-            ja_, ta_ = _leaves(getattr(adam_j, name)), _leaves(
+            ja_, ta_ = leaves(getattr(adam_j, name)), leaves(
                 params_to_jax(getattr(adam_t, name)))
             top = max(np.abs(a).max() for a in ja_.values())
             for k, a in ja_.items():
@@ -274,7 +261,7 @@ def _relu_margin(params, batch, monkeypatch):
     p64 = _to64(params_from_jax(params))
     with torch.no_grad():
         for i in (0, 1):
-            tb.xfeat_forward(p64, _t(batch[f"image{i}"]).double(), train=True,
+            tb.xfeat_forward(p64, t(batch[f"image{i}"]).double(), train=True,
                              compute_dtype=torch.float64)
     monkeypatch.setattr(tb, "_batch_norm", real)
     return min(seen)

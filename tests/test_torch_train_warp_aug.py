@@ -23,16 +23,14 @@ from accelerated_features_tpu_torch.train import augmentation as ta
 from accelerated_features_tpu_torch.train import warp as tw
 from accelerated_features_tpu_torch.train.render import render_scene_views
 
+from torch_support import t
+
 RES = (128, 96)  # (W, H)
 HW = (96, 128)
 DIFFICULTY = 0.1  # make_pair's default
 CFG_J = ja.AugConfig(warp_resolution=RES, out_resolution=RES)
 CFG_T = ta.AugConfig(warp_resolution=RES, out_resolution=RES)
 B = 2
-
-
-def _t(a):
-    return torch.tensor(np.asarray(a))
 
 
 def _n(x):
@@ -63,13 +61,13 @@ def transforms():
 
     def port_h(ks):
         cols = list(zip(*[draws(k) for k in ks]))
-        return ta.homography_from_draws(*[_t(np.stack(c)) for c in cols],
+        return ta.homography_from_draws(*[t(np.stack(c)) for c in cols],
                                         HW)
     offs = np.stack([np.asarray(jax.random.uniform(
         jax.random.split(k)[0], (63, 2))) for k in keys[2 * B:]])
     apply_u = np.stack([np.asarray(jax.random.uniform(
         jax.random.split(k)[1], ())) for k in keys[2 * B:]])
-    tps_t = ta.tps_from_draws(_t(offs), _t(apply_u), (8, 6), DIFFICULTY,
+    tps_t = ta.tps_from_draws(t(offs), t(apply_u), (8, 6), DIFFICULTY,
                               prob=1.0)
     return {"H1": H1, "H2": H2, "tps": tps_j,
             "H1_t": port_h(keys[:B]), "H2_t": port_h(keys[B:2 * B]),
@@ -104,9 +102,9 @@ def test_render_view_and_view2_to_view1(transforms):
             im, h, CFG_J, tp if tp else None))(
             jnp.asarray(imgs), jnp.asarray(transforms["H2"]),
             *([jnp.asarray(x) for x in tps_j] if tps_j else []))
-        tv, tm = ta.render_view(_t(imgs), _t(transforms["H2"]), CFG_T,
+        tv, tm = ta.render_view(t(imgs), t(transforms["H2"]), CFG_T,
                                 None if tps_t is None else
-                                tuple(_t(_n(x)) for x in tps_j))
+                                tuple(t(_n(x)) for x in tps_j))
         np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-4)
         np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
 
@@ -116,9 +114,9 @@ def test_render_view_and_view2_to_view1(transforms):
         p, h1, h2, CFG_J, tp))(jnp.asarray(pts), jnp.asarray(transforms["H1"]),
                                jnp.asarray(transforms["H2"]),
                                *[jnp.asarray(x) for x in transforms["tps"]])
-    tp = ta.view2_to_view1(_t(pts), _t(transforms["H1"]),
-                           _t(transforms["H2"]), CFG_T,
-                           tuple(_t(x) for x in transforms["tps"]))
+    tp = ta.view2_to_view1(t(pts), t(transforms["H1"]),
+                           t(transforms["H2"]), CFG_T,
+                           tuple(t(x) for x in transforms["tps"]))
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-3)
 
 
@@ -132,9 +130,9 @@ def test_make_pair_and_correspondences(transforms):
                          photometric=False)
     cfg_t = ta.AugConfig(warp_resolution=RES, out_resolution=RES,
                          photometric=False)
-    tps_t = tuple(_t(x) for x in transforms["tps"])
-    pair_t = ta.make_pair(None, _t(imgs), cfg_t, transforms={
-        "H1": _t(transforms["H1"]), "H2": _t(transforms["H2"]),
+    tps_t = tuple(t(x) for x in transforms["tps"])
+    pair_t = ta.make_pair(None, t(imgs), cfg_t, transforms={
+        "H1": t(transforms["H1"]), "H2": t(transforms["H2"]),
         "tps2": tps_t})
     v1, m1 = jax.vmap(lambda im, h: ja.render_view(im, h, cfg_j))(
         jnp.asarray(imgs), jnp.asarray(transforms["H1"]))
@@ -161,7 +159,7 @@ def test_make_pair_and_correspondences(transforms):
     jf, jfm = ja.pair_correspondences_full(pair_j, cfg_j, key)
     jitter = np.asarray(jax.random.uniform(key, (B, 192, 2), minval=0.0,
                                            maxval=8.0))
-    tf, tfm = ta.pair_correspondences_full(pair_t, cfg_t, jitter=_t(jitter))
+    tf, tfm = ta.pair_correspondences_full(pair_t, cfg_t, jitter=t(jitter))
     agree = tfm.numpy() == np.asarray(jfm)
     assert agree.mean() > 0.97
     both = np.asarray(jfm) & tfm.numpy()
@@ -174,23 +172,23 @@ def test_photometric_pieces():
     img = rng.uniform(size=(B, 24, 32, 3)).astype(np.float32)
     img[0, :4] = 0.5  # a histogram with a tall bin
     np.testing.assert_allclose(
-        ta.equalize(_t(img)).numpy(),
+        ta.equalize(t(img)).numpy(),
         np.stack([np.asarray(ja.equalize(jnp.asarray(x))) for x in img]),
         atol=1e-6)
-    np.testing.assert_allclose(ta.gaussian_blur7(_t(img)).numpy(),
+    np.testing.assert_allclose(ta.gaussian_blur7(t(img)).numpy(),
                                np.asarray(ja.gaussian_blur7(
                                    jnp.asarray(img))), atol=1e-6)
-    np.testing.assert_allclose(ta.gaussian_blur7(_t(img[0])).numpy(),
+    np.testing.assert_allclose(ta.gaussian_blur7(t(img[0])).numpy(),
                                np.asarray(ja.gaussian_blur7(
                                    jnp.asarray(img[0]))), atol=1e-6)
     small = rng.uniform(size=(B, 3, 5, 1)).astype(np.float32)
     for method in ("bilinear", "bicubic"):
         np.testing.assert_allclose(
-            ta.resize(_t(small), (24, 32), method).numpy(),
+            ta.resize(t(small), (24, 32), method).numpy(),
             np.asarray(jax.image.resize(jnp.asarray(small), (B, 24, 32, 1),
                                         method)), atol=1e-6)
     g = torch.Generator().manual_seed(0)
-    out = ta.photometric_augment(g, _t(img))
+    out = ta.photometric_augment(g, t(img))
     assert out.shape == img.shape and 0 <= float(out.min()) \
         and float(out.max()) <= 1
 
@@ -218,12 +216,12 @@ def rendered():
 
 def test_warp_kpts_and_spvs_coarse_on_rendered_depth(rendered):
     jd = {k: jnp.asarray(v) for k, v in rendered.items()}
-    td = {k: _t(v) for k, v in rendered.items()}
+    td = {k: t(v) for k, v in rendered.items()}
     kp = np.random.default_rng(1).uniform(0, 48, (B, 40, 2)) \
         .astype(np.float32)
     jv, jp = jw.warp_kpts(jnp.asarray(kp), jd["depth0"], jd["depth1"],
                           jd["T_0to1"], jd["K0"], jd["K1"])
-    tv, tp = tw.warp_kpts(_t(kp), td["depth0"], td["depth1"], td["T_0to1"],
+    tv, tp = tw.warp_kpts(t(kp), td["depth0"], td["depth1"], td["T_0to1"],
                           td["K0"], td["K1"])
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-5,
@@ -241,7 +239,7 @@ def test_warp_kpts_and_spvs_coarse_on_rendered_depth(rendered):
     jf, jfm = jw.spvs_full(jd, key, 8)
     jitter = np.asarray(jax.random.uniform(key, (B, 48, 2), minval=0.0,
                                            maxval=8.0))
-    tf, tfm = tw.spvs_full(td, jitter=_t(jitter))
+    tf, tfm = tw.spvs_full(td, jitter=t(jitter))
     assert (tfm.numpy() == np.asarray(jfm)).mean() > 0.98
     both = np.asarray(jfm) & tfm.numpy()
     np.testing.assert_allclose(tf.numpy()[both], np.asarray(jf)[both],
@@ -255,14 +253,14 @@ def test_corr_to_fixed_with_jax_priorities():
     for max_corrs in (8, 40):
         jc, jm = jw.corr_to_fixed(jnp.asarray(corrs), jnp.asarray(mask),
                                   max_corrs)
-        tc, tm = tw.corr_to_fixed(_t(corrs), _t(mask), max_corrs)
+        tc, tm = tw.corr_to_fixed(t(corrs), t(mask), max_corrs)
         np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
         np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
         key = jax.random.key(max_corrs)
         jc, jm = jw.corr_to_fixed(jnp.asarray(corrs), jnp.asarray(mask),
                                   max_corrs, key=key)
         prio = np.asarray(jax.random.uniform(key, mask.shape))
-        tc, tm = tw.corr_to_fixed(_t(corrs), _t(mask), max_corrs,
-                                  priority=_t(prio))
+        tc, tm = tw.corr_to_fixed(t(corrs), t(mask), max_corrs,
+                                  priority=t(prio))
         np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
         np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))

@@ -11,7 +11,6 @@ refuses numpy arrays."""
 
 import functools
 import importlib.util
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,9 +28,8 @@ from accelerated_features_tpu_torch.models.params import (
     export_torch_state_dict, flatten_tree, fold_batchnorm,
     import_torch_state_dict, load_npz_tree, load_params, params_to_jax)
 
-ROOT = Path(__file__).resolve().parents[1]
-CKPT = str(ROOT / "artifacts" / "run_md_ckpt13250.npz")
-LG_CKPT = str(ROOT / "artifacts" / "lighterglue_ft_ckpt7791.npz")
+from torch_support import CKPT, LG_CKPT, ROOT
+
 
 
 def _smoke():
